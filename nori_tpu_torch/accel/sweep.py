@@ -6,6 +6,7 @@ persistent wavefront's path:
   K1 `entry_min`       <- `_entry_kernel`       (pallas_mt.py:896)
   K2 `resident_sweep`  <- `_mt_resident_kernel` (pallas_mt.py:291)
   K3 `lane_keys`       <- `_lane_key_kernel`    (pallas_mt.py:982)
+  K5 `stream_sweep`    <- `_mt_stream_kernel`   (pallas_mt.py:526)
 
 Each wrapper launches its CUDA kernel (nori_tpu_torch/csrc/) for
 tensors on a CUDA device and uses its plain version, defined beside it,
@@ -18,7 +19,9 @@ Layouts are the JAX package's: rays (8, N) [o | d | mint | maxt] with
 N a multiple of TILE_N (pack_rays pads), tile bounds (n_tt, 8)
 [bmin | bmax | pad], triangle operands (9, T) [v0 | e1 | e2]
 (Moller-Trumbore) or (12, T) Baldwin-Weber rows (scene._build_tri_bw),
-T a multiple of FINE_T.
+T a multiple of FINE_T.  Streamed-scale scenes carry 16-row operands
+[v0|e1|e2|0*7] or [bw(12)|0*4], T a multiple of STREAM_T, and their
+tile bounds cover STREAM_T-triangle slabs.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from nori_tpu_torch import cuda_build
 
 TILE_N = 256   # rays per ray tile
 FINE_T = 128   # triangles per triangle tile
+STREAM_T = 512  # triangles per slab of the streamed sweep
 #: ray-triangle pairs per chunk of the dense plain sweep (bounds its
 #: temporaries to 16 MB each)
 _PLAIN_PAIRS = 1 << 22
@@ -334,8 +338,8 @@ def lane_keys(tile_bounds, rays):
     _check_rays(rays)
     _check(tile_bounds, "tile_bounds", torch.float32, 2, rays.device)
     n_tt, n = tile_bounds.shape[0], rays.shape[1]
-    if tile_bounds.shape[1] != 8 or n_tt * 24 > 48 * 1024:
-        raise ValueError(f"tile_bounds: expected (n_tt <= 2048, 8), got "
+    if tile_bounds.shape[1] != 8:
+        raise ValueError(f"tile_bounds: expected (n_tt, 8), got "
                          f"{tuple(tile_bounds.shape)}")
     if rays.device.type == "cpu":
         return lane_keys_plain(tile_bounds, rays)
@@ -352,3 +356,64 @@ def lane_keys(tile_bounds, rays):
 
 
 lane_keys.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: streamed sweep (closest or any hit) over STREAM_T-triangle slabs
+# ---------------------------------------------------------------------------
+
+def stream_sweep_plain(tris_op, rays, any_hit: bool = False,
+                       use_bw: bool = True):
+    """Dense sweep of the 16-row streamed operand: the resident plain
+    sweep on the rows the test reads ([:12] Baldwin-Weber, [:9]
+    Moller-Trumbore); the zero padding rows are never read."""
+    return resident_sweep_plain(tris_op[:12] if use_bw else tris_op[:9],
+                                rays, any_hit)
+
+
+def stream_sweep(tris_op, keys, idx_bits: int, rays, any_hit: bool = False,
+                 use_bw: bool = True):
+    """K5 wrapper: (t (N,) f32, idx (N,) int32) for (8, N) rays against
+    the (16, T) streamed operand, walking `keys` from
+    ray_tile_entry_keys on the (T / STREAM_T, 8) slab bounds.  use_bw
+    says which rows the operand holds (with 16 rows its shape cannot).
+
+    Kernel: csrc/stream_sweep.cu, replacing pallas_mt.py
+    `_mt_stream_kernel`.  Bound on the H100 by the pair tests over
+    each visited 512-triangle slab and the slab copies (which of the
+    two dominates is not settled); one block per ray tile stages the
+    slabs' read rows through a cp.async double buffer, the copy of the
+    next slab overlapping the test of this one.  The plain version (CPU
+    tensors) sweeps densely and does not read the keys.
+    """
+    _check_rays(rays)
+    _check(tris_op, "tris_op", torch.float32, 2, rays.device)
+    _check(keys, "keys", torch.int32, 2, rays.device)
+    rows, T = tris_op.shape
+    n = rays.shape[1]
+    if rows != 16 or T % STREAM_T or T == 0:
+        raise ValueError(f"tris_op: expected (16, T) with T % {STREAM_T} "
+                         f"== 0, got {tuple(tris_op.shape)}")
+    n_tt = T // STREAM_T
+    if tuple(keys.shape) != (n // TILE_N, n_tt):
+        raise ValueError(f"keys: expected ({n // TILE_N}, {n_tt}), got "
+                         f"{tuple(keys.shape)}")
+    if not 1 <= idx_bits <= 22 or (1 << idx_bits) < n_tt:
+        raise ValueError(f"idx_bits {idx_bits} cannot index {n_tt} slabs")
+    if rays.device.type == "cpu":
+        return stream_sweep_plain(tris_op, rays, any_hit, use_bw)
+    if tris_op.data_ptr() % 16:
+        raise ValueError("tris_op: the slab copies need 16-byte alignment")
+    t = torch.empty((n,), dtype=torch.float32, device=rays.device)
+    idx = torch.empty((n,), dtype=torch.int32, device=rays.device)
+    lib = cuda_build.load()
+    err = lib.stream_sweep_launch(
+        tris_op.data_ptr(), int(use_bw), T, keys.data_ptr(), n_tt,
+        idx_bits, rays.data_ptr(), n, t.data_ptr(), idx.data_ptr(),
+        int(any_hit), _stream(rays.device))
+    stream_sweep.launches += 1
+    _raise_on(err, "stream_sweep")
+    return t, idx
+
+
+stream_sweep.launches = 0

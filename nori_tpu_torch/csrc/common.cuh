@@ -10,8 +10,9 @@
 
 #include <cuda_runtime.h>
 
-#define TILE_N 256  // rays per ray tile (one block)
-#define FINE_T 128  // triangles per triangle tile
+#define TILE_N 256    // rays per ray tile (one block)
+#define FINE_T 128    // triangles per triangle tile (resident sweep)
+#define STREAM_T 512  // triangles per slab (streamed sweep)
 
 // 1/c with |c| clamped away from zero, keeping the sign (the JAX
 // package's slab-test reciprocal).
@@ -39,3 +40,65 @@ __device__ __forceinline__ bool slab(
 // max(x, +0): a non-positive x (and -0) becomes +0, as XLA's maximum
 // does, so the float's bits order like the float itself.
 __device__ __forceinline__ float clamp0(float x) { return x > 0.0f ? x : 0.0f; }
+
+// Block-wide max of one int per thread (blockDim.x == TILE_N); s_buf
+// holds TILE_N / 32 ints.  Every thread of the block must call it.
+__device__ __forceinline__ int block_max_int(int v, int* s_buf) {
+    v = __reduce_max_sync(0xffffffffu, v);
+    if ((threadIdx.x & 31) == 0) s_buf[threadIdx.x >> 5] = v;
+    __syncthreads();
+    int m = s_buf[0];
+#pragma unroll
+    for (int w = 1; w < TILE_N / 32; ++w) m = max(m, s_buf[w]);
+    __syncthreads();
+    return m;
+}
+
+// t_hi contribution of one lane: its useful t as non-negative float bits
+__device__ __forceinline__ int t_cap_bits(bool live, float bt, float maxt) {
+    float tc = live ? fminf(bt, maxt) : 0.0f;
+    return __float_as_int(clamp0(tc));
+}
+
+// One ray against staged triangle c of a tile whose operand rows are
+// STRIDE floats apart; the expressions round exactly as the plain
+// versions in accel/sweep.py (left-to-right sums, no FMA).
+template <bool BW, int STRIDE>
+__device__ __forceinline__ void pair_test(
+        const float* tri, int c, float ox, float oy, float oz,
+        float dx, float dy, float dz, float mint, float maxt,
+        bool* hit, float* t_out) {
+    auto R = [&](int i) { return tri[i * STRIDE + c]; };  // operand row i
+    bool ok;
+    float t, u, v;
+    if constexpr (BW) {
+        // rows [n(3) | d_plane | U(3) | u_w | V(3) | v_w]
+        float den = R(0) * dx + R(1) * dy + R(2) * dz;
+        ok = fabsf(den) > 1e-8f;
+        float inv_den = 1.0f / (ok ? den : 1.0f);
+        t = -(R(0) * ox + R(1) * oy + R(2) * oz + R(3)) * inv_den;
+        float px = ox + t * dx, py = oy + t * dy, pz = oz + t * dz;
+        u = R(4) * px + R(5) * py + R(6) * pz + R(7);
+        v = R(8) * px + R(9) * py + R(10) * pz + R(11);
+    } else {
+        // rows [v0(3) | e1(3) | e2(3)]
+        float e1x = R(3), e1y = R(4), e1z = R(5);
+        float e2x = R(6), e2y = R(7), e2z = R(8);
+        float px = dy * e2z - dz * e2y;
+        float py = dz * e2x - dx * e2z;
+        float pz = dx * e2y - dy * e2x;
+        float det = e1x * px + e1y * py + e1z * pz;
+        ok = fabsf(det) > 1e-8f;
+        float inv_det = 1.0f / (ok ? det : 1.0f);
+        float tx = ox - R(0), ty = oy - R(1), tz = oz - R(2);
+        u = (tx * px + ty * py + tz * pz) * inv_det;
+        float qx = ty * e1z - tz * e1y;
+        float qy = tz * e1x - tx * e1z;
+        float qz = tx * e1y - ty * e1x;
+        v = (dx * qx + dy * qy + dz * qz) * inv_det;
+        t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+    }
+    *hit = ok && (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) &&
+           (u + v <= 1.0f) && (t >= mint) && (t <= maxt);
+    *t_out = t;
+}

@@ -19,37 +19,46 @@
 //
 // Bound on the H100: arithmetic, n_lanes * n_tt slab tests with a few
 // integer ops each; the output is 8 B per lane.  Design: one thread per
-// lane, 256 lanes per block, the tile bounds (n_tt * 24 B, 2.4 KB for
-// the living room's 101 coarsened groups) staged in shared memory and
-// read by every thread of a warp at the same address (a broadcast).
-// The TPU version's one-hot group matmul and 8-ray-tile grid groups
-// are not needed.
+// lane, 256 lanes per block, the tile bounds staged in shared memory
+// in chunks of BOUNDS_CHUNK boxes (24 KB; the living room's 101
+// coarsened groups take one, the ajax stand-in's 1,058 slabs two) and
+// read by every thread of a warp at the same address (a broadcast), so
+// any tile count is taken.  The TPU version's one-hot group matmul and
+// 8-ray-tile grid groups are not needed.
 #include "common.cuh"
+
+#define BOUNDS_CHUNK 1024  // tile boxes staged per pass
 
 __global__ void lane_keys_kernel(const float* __restrict__ bounds, int n_tt,
                                  int n_tt_pad, const float* __restrict__ rays,
                                  int n, int* __restrict__ key1,
                                  int* __restrict__ key2) {
-    extern __shared__ float s_b[];  // (n_tt, 6) [bmin | bmax]
-    for (int e = threadIdx.x; e < n_tt * 6; e += blockDim.x) {
-        s_b[e] = bounds[(e / 6) * 8 + e % 6];
-    }
-    __syncthreads();
+    __shared__ float s_b[BOUNDS_CHUNK * 6];  // one chunk of [bmin | bmax]
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
-    if (r >= n) return;
-    const float ox = rays[0 * n + r], oy = rays[1 * n + r], oz = rays[2 * n + r];
-    const float ix = safe_inv(rays[3 * n + r]);
-    const float iy = safe_inv(rays[4 * n + r]);
-    const float iz = safe_inv(rays[5 * n + r]);
-    const float mint = rays[6 * n + r], maxt = rays[7 * n + r];
+    const bool in = r < n;  // every thread stages, lanes past n only wait
+    const int rr = in ? r : 0;
+    const float ox = rays[0 * n + rr], oy = rays[1 * n + rr], oz = rays[2 * n + rr];
+    const float ix = safe_inv(rays[3 * n + rr]);
+    const float iy = safe_inv(rays[4 * n + rr]);
+    const float iz = safe_inv(rays[5 * n + rr]);
+    const float mint = rays[6 * n + rr], maxt = rays[7 * n + rr];
+    const bool live = in && mint <= maxt;
     const int gsz = (n_tt_pad + 29) / 30;
     int first = -1, fine = 0, coarse = 0;
-    if (mint <= maxt) {
-        for (int j = 0; j < n_tt; ++j) {
+    for (int j0 = 0; j0 < n_tt; j0 += BOUNDS_CHUNK) {
+        const int m = min(BOUNDS_CHUNK, n_tt - j0);
+        __syncthreads();  // the previous chunk is no longer read
+        for (int e = threadIdx.x; e < m * 6; e += blockDim.x) {
+            s_b[e] = bounds[(j0 + e / 6) * 8 + e % 6];
+        }
+        __syncthreads();
+        if (!live) continue;
+        for (int jj = 0; jj < m; ++jj) {
             float tn;
-            if (!slab(s_b + 6 * j, ox, oy, oz, ix, iy, iz, mint, maxt, &tn)) {
+            if (!slab(s_b + 6 * jj, ox, oy, oz, ix, iy, iz, mint, maxt, &tn)) {
                 continue;
             }
+            const int j = j0 + jj;
             if (first < 0) {
                 first = j;
             } else if (j - first <= 20) {
@@ -58,6 +67,7 @@ __global__ void lane_keys_kernel(const float* __restrict__ bounds, int n_tt,
             coarse |= 1 << max(29 - j / gsz, 0);
         }
     }
+    if (!in) return;
     const int f1 = first < 0 ? n_tt_pad : first;
     key1[r] = (min(f1, 1023) << 20) | fine;
     key2[r] = coarse;
@@ -67,9 +77,8 @@ extern "C" int lane_keys_launch(const float* bounds, int n_tt, int n_tt_pad,
                                 const float* rays, int n, int* key1,
                                 int* key2, cudaStream_t stream) {
     const int blocks = (n + TILE_N - 1) / TILE_N;
-    const size_t smem = (size_t)n_tt * 6 * sizeof(float);
     if (blocks > 0) {
-        lane_keys_kernel<<<blocks, TILE_N, smem, stream>>>(
+        lane_keys_kernel<<<blocks, TILE_N, 0, stream>>>(
             bounds, n_tt, n_tt_pad, rays, n, key1, key2);
     }
     return (int)cudaGetLastError();

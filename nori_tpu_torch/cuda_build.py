@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 The sources under `nori_tpu_torch/csrc/` have plain `extern "C"` entry
-points.  At first use they are compiled by `nvcc` for Hopper (sm_90a)
-into one shared library under `nori_tpu_torch/_build/`, named by a
-hash of the sources and flags so an edit forces a rebuild, and loaded
-with ctypes.  Nothing here runs at import time: the CPU tests import
+points.  At first use each `.cu` file is compiled by its own `nvcc`
+for Hopper (sm_90a), all at once, and the objects are linked into one
+shared library under `nori_tpu_torch/_build/`, named by a hash of the
+sources and flags so an edit forces a rebuild, and loaded with
+ctypes.  Nothing here runs at import time: the CPU tests import
 every module of the port on a machine with no `nvcc`.
 
 Flags: no `--use_fast_math` (the slab and pair tests rely on IEEE
@@ -26,7 +27,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
 ]
 
 _lib = None
@@ -64,8 +65,10 @@ def _declare(lib):
     lib.resident_sweep_launch.argtypes = [
         vp, ci, ci, vp, ci, ci, vp, ci, vp, vp, ci, vp]
     lib.lane_keys_launch.argtypes = [vp, ci, ci, vp, ci, vp, vp, vp]
+    lib.stream_sweep_launch.argtypes = [
+        vp, ci, ci, vp, ci, ci, vp, ci, vp, vp, ci, vp]
     for fn in (lib.entry_min_launch, lib.resident_sweep_launch,
-               lib.lane_keys_launch):
+               lib.lane_keys_launch, lib.stream_sweep_launch):
         fn.restype = ci
 
 
@@ -78,13 +81,32 @@ def load():
     path = library_path()
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.tmp{os.getpid()}"
+        tag = f"tmp{os.getpid()}"
         cu = [p for p in _sources() if p.endswith(".cu")]
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-            capture_output=True, text=True, timeout=900)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
+        objs = [os.path.join(BUILD_DIR, os.path.basename(p) + f".{tag}.o")
+                for p in cu]
+        procs = [subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", o, p],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for p, o in zip(cu, objs)]
+        logs, failed = [], False
+        for proc in procs:
+            out, _ = proc.communicate(timeout=900)
+            logs.append(out)
+            failed |= proc.returncode != 0
+        if not failed:
+            tmp = f"{path}.{tag}"
+            proc = subprocess.run(
+                [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                 "-shared", "-o", tmp, *objs],
+                capture_output=True, text=True, timeout=300)
+            logs.append(proc.stdout + proc.stderr)
+            failed = proc.returncode != 0
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+        build_log = "".join(logs)
+        if failed:
             raise RuntimeError(f"nvcc failed:\n{build_log}")
         os.replace(tmp, path)
     lib = ctypes.CDLL(path)

@@ -1,7 +1,7 @@
 """Integrator base class + shared light-transport helpers.
 
-Port of `nori_tpu/integrators/base.py` (the parts the persistent
-wavefront uses).
+Port of `nori_tpu/integrators/base.py` (the parts the integrators
+use).
 """
 
 from __future__ import annotations
@@ -9,9 +9,11 @@ from __future__ import annotations
 import torch
 
 from nori_tpu_torch import registry
+from nori_tpu_torch.bsdf import BSDFParams
 from nori_tpu_torch.objects import NoriObject
 from nori_tpu_torch.core.vecmath import EPSILON, normalize
 from nori_tpu_torch.core.dpdf import sample_discrete
+from nori_tpu_torch.core import rng
 
 
 class Integrator(NoriObject):
@@ -19,6 +21,12 @@ class Integrator(NoriObject):
 
     def preprocess(self, scene):
         """Hook matching Integrator::preprocess (integrator.h:42)."""
+
+    def make_li(self, scene):
+        """li(sd, o, d, mint, maxt, seed, lanes) -> ((N, 3) radiance,
+        {"rays": count tensor}) over a batch of N rays; lanes are the
+        global sample ids keying the RNG."""
+        raise NotImplementedError
 
 
 def sample_emitter_point_fast(scene, u_pick, u2):
@@ -46,6 +54,18 @@ def sample_emitter_point_fast(scene, u_pick, u2):
     return y, n_y, le, pdf_area
 
 
+def mesh_params(sd, its):
+    """(BSDFParams, emitted radiance (N, 3)) of each hit's mesh, from one
+    gather of the packed per-mesh rows (SceneData.mesh_attr)."""
+    am = sd.mesh_attr[its.mesh.long()]
+    params = BSDFParams(
+        type=am[:, 0].contiguous().view(torch.int32),
+        albedo=am[:, 1:4], alpha=am[:, 4],
+        int_ior=am[:, 5], ext_ior=am[:, 6], ks=am[:, 7],
+    )
+    return params, am[:, 8:11]
+
+
 def shadow_ray_args(p, y):
     """Ray setup for a visibility test between surface points p and y."""
     dvec = y - p
@@ -55,3 +75,11 @@ def shadow_ray_args(p, y):
                       device=dist.device)
     maxt = dist * (1.0 - 1e-4)
     return wo, dist, mint, maxt
+
+
+def lane_uniform(seed, lanes, stream):
+    return rng.uniform(seed, lanes, stream)
+
+
+def lane_uniform2(seed, lanes, stream):
+    return rng.uniform2(seed, lanes, stream)

@@ -1,9 +1,9 @@
 """CLI entry point: `python -m nori_tpu_torch scene.xml [-o out]`.
 
-Port of `nori_tpu/main.py` for scenes rendered by the path family
-(src/main.cpp:153-211): an XML argument loads and renders the scene to
-<out>.exr and <out>.png.  Statistical test suites, EXR viewing and the
-other integrators are not ported yet and fail with a clear error.
+Port of `nori_tpu/main.py` for scene rendering (src/main.cpp:153-211):
+an XML argument loads and renders the scene, with any integrator, to
+<out>.exr and <out>.png.  Statistical test suites and EXR viewing are
+not ported yet and fail with a clear error.
 """
 
 from __future__ import annotations

@@ -25,17 +25,16 @@ from nori_tpu_torch.objects import NoriObject
 from nori_tpu_torch.props import PropertyList
 from nori_tpu_torch.registry import register_class, NoriError, create_instance
 from nori_tpu_torch.bsdf import table_arrays
+# triangles per tile of the resident sweep / per slab of the streamed one
+from nori_tpu_torch.accel.sweep import FINE_T, STREAM_T
 
 TRI_PAD = 512  # triangle padding granularity (the JAX package's)
-#: triangles per tile of the resident sweep and of the tile bounds
-FINE_T = 128
 #: the JAX package sizes tile bounds by a TPU memory budget: soups with
 #: 9*T*4 bytes above it are "streamed" and get STREAM_T-triangle tiles
 #: and 16-row operands.  The same rule is kept here so the compiled
-#: arrays stay equal; the port's sweep does not run such scenes yet
-#: (kernel K5, ROADMAP.md).
+#: arrays stay equal; accel.traverse sends 16-row operands to the
+#: streamed sweep (kernel K5).
 STREAMED_BYTES = 8 * 1024 * 1024
-STREAM_T = 512
 
 
 def _build_tri_bw(v0, e1, e2, n_tris):

@@ -6,12 +6,13 @@ pulls the next work item (a new camera ray) from a device-side counter,
 so the intersection sweeps run near full occupancy.  Work item q
 renders sample (q % spp) of pixel (q // spp).
 
-Each step: closest-hit sweep, interaction fill, emitter hit with MIS,
-next-event estimation with a shadow query, Russian roulette and BSDF
-sampling, regeneration, then a coherence sort of the lanes by their
-candidate triangle tiles.  Terminated lanes' (q, L) records go densely
-into a per-chunk record log at a running cursor; after the chunk
-drains, one sort by q restores sample order for the dense film splat.
+Each step: one path vertex (integrators.path.path_vertex: closest-hit
+sweep, emitter hit with MIS, next-event estimation with a shadow query,
+Russian roulette and BSDF sampling), regeneration, then a coherence
+sort of the lanes by their candidate triangle tiles.  Terminated
+lanes' (q, L) records go densely into a per-chunk record log at a
+running cursor; after the chunk drains, one sort by q restores sample
+order for the dense film splat.
 
 Determinism: lanes key the counter-based RNG by global sample id q, so
 a sample's value does not depend on lane order or pool width.
@@ -31,16 +32,10 @@ import time
 import torch
 
 from nori_tpu_torch.accel.sweep import lane_keys, pack_rays
-from nori_tpu_torch.accel.traverse import intersect, occluded
-from nori_tpu_torch.bsdf import (
-    BSDFParams, E_DISCRETE, eval_bsdf, pdf_bsdf, sample_bsdf)
+from nori_tpu_torch.bsdf import E_DISCRETE
 from nori_tpu_torch.core import rng
-from nori_tpu_torch.core.vecmath import (
-    EPSILON, dot, make_frame, to_local, to_world)
-from nori_tpu_torch.integrators.base import (
-    sample_emitter_point_fast, shadow_ray_args)
-from nori_tpu_torch.integrators.path import EMS, MATS, MIS, RR_MAX, RR_START
-from nori_tpu_torch.interaction import fill_interaction_fast
+from nori_tpu_torch.core.vecmath import EPSILON, to_world
+from nori_tpu_torch.integrators.path import MIS, path_vertex
 from nori_tpu_torch.render import JITTER_STREAM
 
 MAX_DEPTH = 48
@@ -106,10 +101,15 @@ def _unpack_state(m, q0):
     )
 
 
-def key_coarsen(n_tt: int) -> int:
-    """Sort-key tile grouping: the JAX package's factor for large
-    resident scenes (4x above 256 tiles), kept for key parity; a
-    parameter to re-measure on the H100, not a Hopper measurement."""
+def key_coarsen(n_rows: int, n_tt: int) -> int:
+    """Sort-key tile grouping for a scene whose triangle operand has
+    n_rows rows and whose tile bounds n_tt boxes: the JAX package's
+    factors (auto_key_coarsen, wavefront.py:119-130), 8 for streamed
+    scenes (16-row operands), 4 above 256 tiles, else 1.  Kept for key
+    parity; parameters to re-measure on the H100, not Hopper
+    measurements."""
+    if n_rows == 16:
+        return 8
     return 4 if n_tt > 256 else 1
 
 
@@ -135,7 +135,7 @@ def _coarsen_bounds(kb, c: int):
 def make_wavefront_stepper(scene, mode: int, n_lanes: int, chunk: int,
                            max_depth: int = MAX_DEPTH,
                            sort_rays: bool | None = None,
-                           device="cpu", use_bw: bool = True):
+                           device="cpu"):
     """Build (init, step, n_active, finalize) for one pool width.
 
     carry = (state dict, next_q, records (chunk + N, 4), w_cursor,
@@ -147,10 +147,10 @@ def make_wavefront_stepper(scene, mode: int, n_lanes: int, chunk: int,
     w, h = cam.output_size
     spp = scene.sampler.sample_count
     cam_params = cam.ray_params(device)
-    use_nee = mode in (EMS, MIS)
     N = n_lanes
-    n_tt = int(scene.compile_arrays()["tri_tile_bounds"].shape[0])
-    kc = key_coarsen(n_tt)
+    arrays = scene.compile_arrays()
+    n_tt = int(arrays["tri_tile_bounds"].shape[0])
+    kc = key_coarsen(arrays["tri_packed"].shape[0], n_tt)
     if sort_rays is None:
         # coherence sorting pays only when the sweep has enough
         # triangle tiles to prune
@@ -199,91 +199,10 @@ def make_wavefront_stepper(scene, mode: int, n_lanes: int, chunk: int,
         spec, prev_pdf = st["spec"], st["prev_pdf"]
 
         rays = rays + active.sum()
-        hit = intersect(sd, o, d, mint, maxt, use_bw)
-        its = fill_interaction_fast(sd, hit, o, d)
-        live_hit = active & its.valid
-
-        # ---- per-mesh row: BSDF params + emission in one gather -----
-        am = sd.mesh_attr[its.mesh.long()]
-        params = BSDFParams(
-            type=am[:, 0].contiguous().view(torch.int32),
-            albedo=am[:, 1:4], alpha=am[:, 4],
-            int_ior=am[:, 5], ext_ior=am[:, 6], ks=am[:, 7],
-        )
-        mesh_le = am[:, 8:11]
-
-        # ---- emitter hit --------------------------------------------
-        front = dot(its.sh_n, its.wi_world) > 0.0
-        le = torch.where((its.valid & front)[:, None], mesh_le, 0.0)
-        if mode == MATS:
-            w_em = torch.ones((N,), dtype=torch.float32, device=device)
-        elif mode == EMS:
-            w_em = spec.to(torch.float32)
-        else:
-            cos_y = dot(its.sh_n, its.wi_world)
-            p_light_sa = torch.where(
-                (sd.em_area > 0.0) & (cos_y > 1e-8),
-                (its.t * its.t)
-                / (sd.em_area * torch.clamp_min(cos_y, 1e-8)),
-                0.0,
-            )
-            w_em = torch.where(
-                spec, 1.0,
-                prev_pdf / torch.clamp_min(prev_pdf + p_light_sa, 1e-20))
-        L = L + torch.where(live_hit[:, None], beta * le * w_em[:, None],
-                            0.0)
-
-        frame = make_frame(its.sh_n)
-        wi_local = to_local(frame, its.wi_world)
-        du = depth.to(torch.int64) * 8
-
-        # ---- next-event estimation ----------------------------------
-        if use_nee:
-            u_pick = rng.uniform(seed, q, du + 1)
-            u2 = rng.uniform2(seed, q, du + 2)
-            y, n_y, le_y, pdf_area = sample_emitter_point_fast(
-                sd, u_pick, u2)
-            wo_w, dist, smint, smaxt = shadow_ray_args(its.p, y)
-            cos_l = dot(n_y, -wo_w)
-            wo_local = to_local(frame, wo_w)
-            f = eval_bsdf(params, wi_local, wo_local)
-            p_light_sa = torch.where(
-                cos_l > 1e-8,
-                pdf_area * dist * dist / torch.clamp_min(cos_l, 1e-8),
-                0.0,
-            )
-            # a lane whose contribution is already zero needs no
-            # visibility answer: cull it from the shadow sweep
-            ok = ((cos_l > 1e-8) & (p_light_sa > 0.0) & live_hit
-                  & (torch.amax(beta * f, dim=-1) > 0.0))
-            smaxt = torch.where(ok, smaxt, -1.0)
-            rays = rays + ok.sum()
-            if mode == MIS:
-                p_b = pdf_bsdf(params, wi_local, wo_local)
-                w_l = p_light_sa / torch.clamp_min(p_light_sa + p_b, 1e-20)
-            else:
-                w_l = torch.ones((N,), dtype=torch.float32, device=device)
-            contrib = (
-                beta * f * le_y
-                * (wo_local[..., 2] / torch.clamp_min(p_light_sa, 1e-20)
-                   * w_l)[:, None]
-            )
-            vis = ~occluded(sd, its.p, wo_w, smint, smaxt, use_bw)
-            L = L + torch.where((ok & vis)[:, None], contrib, 0.0)
-
-        # ---- Russian roulette + BSDF sampling -----------------------
-        alive = live_hit
-        u_rr = rng.uniform(seed, q, du + 5)
-        rr_q = torch.clamp_max(torch.amax(beta, dim=-1), RR_MAX)
-        rr_q = torch.where(depth >= RR_START, rr_q, 1.0)
-        alive = alive & (u_rr < rr_q)
-        beta = beta / torch.clamp_min(rr_q, 1e-8)[:, None]
-
-        u_lobe = rng.uniform(seed, q, du + 3)
-        u_dir = rng.uniform2(seed, q, du + 4)
-        s = sample_bsdf(params, wi_local, u_lobe, u_dir)
-        beta = beta * s.weight
-        alive = alive & (torch.amax(s.weight, dim=-1) > 0.0)
+        its, frame, s, L, beta, alive, n_shadow = path_vertex(
+            sd, mode, o, d, mint, maxt, active, depth, beta, L, spec,
+            prev_pdf, seed, q)
+        rays = rays + n_shadow
         alive = alive & (depth + 1 < max_depth)
 
         # ---- terminate ----------------------------------------------
@@ -527,7 +446,7 @@ def make_dense_splat(scene, chunk: int, device="cpu"):
 def render_wavefront(scene, spp: int | None = None, seed: int = 0,
                      n_lanes: int = 131072, chunk: int | None = None,
                      verbose: bool = False, sort_rays: bool | None = None,
-                     device=None, use_bw: bool = True):
+                     device=None):
     """Render a path-family scene with the persistent wavefront on
     `device` (default: the first CUDA device if there is one).
 
@@ -556,7 +475,7 @@ def render_wavefront(scene, spp: int | None = None, seed: int = 0,
 
     def stepper(n):
         return make_wavefront_stepper(scene, mode, n, chunk, max_depth,
-                                      sort_rays, device, use_bw)
+                                      sort_rays, device)
 
     init, step, n_act, finalize = stepper(n_lanes)
     # drain-shrink cascade: successively SHRINK_FACTOR-x narrower pools

@@ -191,3 +191,55 @@ def test_pack_rays_pads_with_idle_rays():
     assert n == 300 and tuple(rays.shape) == (8, 512)
     assert bool((rays[6, 300:] > rays[7, 300:]).all())
     assert bool((rays[6, :300] <= rays[7, :300]).all())
+
+
+def test_lane_keys_past_2048_tiles():
+    """The kernel stages tile boxes chunk by chunk, so any tile count is
+    taken: 2,100 small boxes on a grid in the plane z = 0, rays from
+    above (a few candidates each) and rays grazing the plane (many),
+    against the JAX package's jnp keys."""
+    rng = np.random.RandomState(4)
+    n_tt = 2100
+    gx, gy = np.meshgrid(np.arange(50), np.arange(42), indexing="ij")
+    lo = np.stack([gx.ravel(), gy.ravel(), np.zeros(n_tt)], 1) * [1, 1, 0]
+    tb = np.zeros((n_tt, 8), np.float32)
+    tb[:, 0:3] = lo - [0, 0, 0.1]
+    tb[:, 3:6] = lo + [0.8, 0.8, 0.1]
+    n = 512
+    o = np.concatenate([
+        np.stack([rng.rand(n // 2) * 50, rng.rand(n // 2) * 42,
+                  np.full(n // 2, 2.0)], 1),
+        np.stack([rng.rand(n // 2) * 50, rng.rand(n // 2) * 42,
+                  np.full(n // 2, 0.05)], 1)])
+    d = np.concatenate([
+        np.stack([rng.randn(n // 2) * 0.3, rng.randn(n // 2) * 0.3,
+                  -np.ones(n // 2)], 1),
+        np.stack([rng.randn(n // 2), rng.randn(n // 2),
+                  np.zeros(n // 2)], 1)])
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    mint = np.full(n, 1e-4)
+    maxt = np.full(n, 1e30)
+    mint[::13], maxt[::13] = 1.0, -1.0
+    rays = np.ascontiguousarray(np.concatenate(
+        [o.T, d.T, mint[None], maxt[None]]).astype(np.float32))
+    r1, r2 = (np.asarray(k) for k in pallas_mt._lane_keys_impl(
+        jnp.asarray(tb), jnp.asarray(rays)))
+    k1, k2 = (k.numpy() for k in sweep.lane_keys(_t(tb), _t(rays)))
+    np.testing.assert_array_equal(k2, r2)
+    np.testing.assert_array_equal(k1 >> 20, r1 >> 20)
+    assert (k1 >> 20).max() == 1023 and len(np.unique(k2)) > 20
+    # the fine field differs only where candidates at offsets >= 21
+    # round into the reference's float sum
+    o3, inv = rays[0:3].T[:, None], 1.0 / np.where(
+        np.abs(rays[3:6].T) < 1e-20,
+        np.where(rays[3:6].T < 0, -1e-20, 1e-20), rays[3:6].T)[:, None]
+    t0, t1 = (tb[None, :, 0:3] - o3) * inv, (tb[None, :, 3:6] - o3) * inv
+    tn, tf = np.minimum(t0, t1).max(-1), np.maximum(t0, t1).min(-1)
+    cand = ((tn <= tf) & (tf >= rays[6][:, None]) & (tn <= rays[7][:, None])
+            & (rays[6] <= rays[7])[:, None])
+    idx = np.arange(n_tt)[None, :]
+    first = np.where(cand, idx, n_tt).min(1)[:, None]
+    far = (cand & (idx - first >= 21)).any(1)
+    assert far.any() and (~far & cand.any(1)).sum() > 100
+    fine_eq = (k1 & 0xFFFFF) == (r1 & 0xFFFFF)
+    assert fine_eq[~far].all()

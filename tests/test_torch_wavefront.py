@@ -1,9 +1,9 @@
 """The slice end to end: nori_tpu_torch's persistent-wavefront path_mis
 render on the CPU against nori_tpu's.
 
-Both sides run the Moller-Trumbore test (the port's use_bw=False; the
-JAX package's CPU scan path) with config.MERGED_SWEEP pinned False, at
-seed 0 with 4,096 lanes.  The living room (32 tiles) takes the
+Both sides run the Moller-Trumbore test (the port's traverse.USE_BW
+False; the JAX package's CPU scan path) with config.MERGED_SWEEP pinned
+False, at seed 0 with 4,096 lanes.  The living room (32 tiles) takes the
 kernel-key coherence sort, the Cornell box (8 tiles, sort forced on)
 the exact-bitmask sort.
 
@@ -34,6 +34,7 @@ from nori_tpu.integrators.path import MIS
 
 from nori_tpu_torch import scenes_builtin as torch_scenes
 from nori_tpu_torch import wavefront as torch_wf
+from nori_tpu_torch.accel import traverse as torch_traverse
 
 CASES = {
     "living_room": (lambda m: m.living_room(16, 16, 2, detail=3), None),
@@ -44,7 +45,8 @@ N_LANES = 4096
 
 
 @pytest.fixture(autouse=True)
-def _unmerged():
+def _unmerged(monkeypatch):
+    monkeypatch.setattr(torch_traverse, "USE_BW", False)
     old = config.MERGED_SWEEP
     config.MERGED_SWEEP = False
     yield
@@ -58,7 +60,7 @@ def test_render_matches_jax(name):
         make(jax_scenes), seed=0, n_lanes=N_LANES, sort_rays=sort_rays)
     img, st = torch_wf.render_wavefront(
         make(torch_scenes), seed=0, n_lanes=N_LANES, sort_rays=sort_rays,
-        device="cpu", use_bw=False)
+        device="cpu")
     assert st["rays"] == ref_st["rays"]
     assert st["steps"] == ref_st["steps"]
     assert img.shape == ref.shape and np.isfinite(img).all()
@@ -81,8 +83,7 @@ def test_one_step_matches_jax(name):
     jinit, jstep, _, _ = jax_wf.make_wavefront_stepper(
         js, MIS, N_LANES, chunk, sort_rays=sort_rays, merged=False)
     tinit, tstep, _, _ = torch_wf.make_wavefront_stepper(
-        ts, MIS, N_LANES, chunk, sort_rays=sort_rays, device="cpu",
-        use_bw=False)
+        ts, MIS, N_LANES, chunk, sort_rays=sort_rays, device="cpu")
     jsd, tsd = js.compile(), ts.compile("cpu")
     jc = jinit(jnp.uint32(0), jnp.uint32(0), jnp.uint32(total))
     tc = tinit(0, 0, total)
