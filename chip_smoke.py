@@ -5,15 +5,27 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels (K1 entry_min, K2 resident_sweep, K3
-lane_keys, K5 stream_sweep) from nori_tpu_torch/csrc/ and drives two
-paths of the port, each through its kernels:
+It builds the CUDA kernels (K1 entry_min, K2 resident_sweep, K2-mxu
+resident_sweep_mxu, K3 lane_keys, K4 resident_sweep_mixed, K5
+stream_sweep, K5-cull stream_sweep_culled, K6 mt_sweep) from
+nori_tpu_torch/csrc/ and drives the paths of the port, each through
+its kernels:
 
 * the persistent wavefront on the living room (51,712 triangles, K1,
   K2, K3): each kernel against its plain PyTorch version on the card at
   the path's shapes, a small render on the card against the CPU, and
   the full 1280x720, 32 spp, 524,288-lane render through
   `render_to_files`;
+* the merged wavefront step (config.MERGED_SWEEP, K4): K4 against its
+  plain version and against the two K2 launches it replaces, then the
+  full render merged, alternated with the two-launch render, whose
+  image it must equal bit for bit, with K4 on every step and K2 once;
+* the matmul-form sweep (config.USE_MXU_SWEEP, K2-mxu): the kernel
+  against its plain version, a small render card vs CPU, the full
+  render against the BW render's mean radiance and rays;
+* the 2-D sweep (K6, which only this script calls in the port):
+  closest and any-hit on the wavefront's rays, against its plain
+  version;
 * the batch driver on the ajax composition (the 541,696-triangle
   procedural stand-in for the pa2/pa5 ajax scan, streamed layout, K1,
   K3, K5): the kernels against their plain versions on the slab
@@ -22,13 +34,18 @@ paths of the port, each through its kernels:
   `traverse.occluded` sorts them, normals/whitted/path_mis
   renders on the card against the CPU, and the full ajax_normals
   (768x768, 4 spp) and ajax_rough (768x768, 16 spp, whitted) renders
-  through `render_to_files`, which must launch K5 and never K2.
+  through `render_to_files`, which must launch K5 and never K2;
+* sub-slab culling (config.STREAM_CULL_T = 128 on the Moller-Trumbore
+  operand, K5-cull): the kernel against its plain version and against
+  K5 uncut, then ajax_normals culled against the uncut render.
 
-Any failure raises and exits non-zero; without a CUDA device it exits
-non-zero before printing any result.  Every phase prints its time.
+Each path resets every kernel's launch count just before it runs and
+reads the counts just after.  Any failure raises and exits non-zero;
+without a CUDA device it exits non-zero before printing any result.
+Every phase prints its time.
 
 The last three lines of standard output are one JSON object with the
-kernels' checks and times, the card's name and power limit as
+kernels' checks, times and bounds, the card's name and power limit as
 nvidia-smi reports them, and {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
@@ -92,10 +109,118 @@ AJAX_SORTED_BATCH = 36
 #: parity renders on the ajax scene, port on the card vs the CPU
 AJAX_PARITY = (("normals", 32, 2, "render"), ("whitted", 32, 4, "render"),
                ("path_mis", 16, 2, "wavefront"))
+#: parity render of the matmul-form sweep, port on the card vs the CPU
+MXU_PARITY = dict(width=16, height=16, spp=2, detail=3, n_lanes=4096)
+#: sub-slab culling granularity of the K5-cull path
+CULL_T = 128
+
+#: the H100 SXM's published peaks (NVIDIA's data sheet): fp32 outside
+#: the tensor cores, and device memory
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+#: operations per ray-triangle pair test (the JAX package's counts for
+#: BW and MT; MXU: four 10-term sums, 76, plus the epilogue's 13)
+PAIR_OPS = {"bw": 40, "mt": 56, "mxu": 89}
+#: operations per ray-box slab test with its fold (12 to reach the six
+#: planes, 6 min/max per axis, 4 for entry and exit, 3 compares, 2 to
+#: fold)
+SLAB_OPS = 27
+#: the port's kernels: wrapper name -> (row label, source, the TPU
+#: kernel it replaces)
+KERNELS = {
+    "entry_min": ("K1", "nori_tpu_torch/csrc/entry_min.cu",
+                  "nori_tpu/accel/pallas_mt.py:896"),
+    "resident_sweep": ("K2", "nori_tpu_torch/csrc/resident_sweep.cu",
+                       "nori_tpu/accel/pallas_mt.py:291"),
+    "resident_sweep_mxu": ("K2-mxu", "nori_tpu_torch/csrc/resident_sweep.cu",
+                           "nori_tpu/accel/pallas_mt.py:392"),
+    "lane_keys": ("K3", "nori_tpu_torch/csrc/lane_keys.cu",
+                  "nori_tpu/accel/pallas_mt.py:982"),
+    "resident_sweep_mixed": ("K4", "nori_tpu_torch/csrc/resident_sweep.cu",
+                             "nori_tpu/accel/pallas_mt.py:353"),
+    "stream_sweep": ("K5", "nori_tpu_torch/csrc/stream_sweep.cu",
+                     "nori_tpu/accel/pallas_mt.py:526"),
+    "stream_sweep_culled": ("K5-cull", "nori_tpu_torch/csrc/stream_sweep.cu",
+                            "nori_tpu/accel/pallas_mt.py:619"),
+    "mt_sweep": ("K6", "nori_tpu_torch/csrc/mt_sweep.cu",
+                 "nori_tpu/accel/pallas_mt.py:77"),
+}
 
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+def wrappers() -> dict:
+    from nori_tpu_torch.accel import sweep
+
+    return {name: getattr(sweep, name) for name in KERNELS}
+
+
+def reset_launches():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+@contextlib.contextmanager
+def switches(**values):
+    """Set nori_tpu_torch.config switches for a block, then restore."""
+    from nori_tpu_torch import config
+
+    old = {k: getattr(config, k) for k in values}
+    for k, v in values.items():
+        setattr(config, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(config, k, v)
+
+
+def record(name: str, ms: float, plain_ms: float, max_abs_err: float,
+           ops: float, nbytes: float, **extra) -> dict:
+    """A kernel's JSON record.  bound_ms is the larger of ops over the
+    fp32 peak and bytes over the memory rate, for the inputs it was
+    timed on; library_ms is null: no single PyTorch call computes any of
+    these functions."""
+    label, source, replaces = KERNELS[name]
+    return dict(name=name, kernel=label, route="cuda", source=source,
+                replaces=replaces, launches=0, max_abs_err=max_abs_err,
+                ms=ms, plain_ms=plain_ms, **bound(ops, nbytes),
+                library_ms=None, **extra)
+
+
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of ops over the
+    fp32 peak and bytes over the memory rate, and which it is."""
+    t_ops = ops / PEAK_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                ops=ops, bytes=nbytes)
+
+
+def sweep_bytes(read_rows: int, T: int, n_rays: int, key_cols: int) -> float:
+    """Bytes a sweep must move: its operand's read rows, the packed
+    rays, the key rows (one int32 per ray tile and tile), t and idx."""
+    return 4.0 * (read_rows * T + 8 * n_rays + (n_rays // 256) * key_cols
+                  + 2 * n_rays)
+
+
+def visited_pairs(call, rays, group: int) -> int:
+    """Ray-triangle pairs a sweep tested on these rays: per ray tile the
+    groups of `group` triangles it visited (the kernel's visit count)
+    x group x 256."""
+    import torch
+
+    visits = torch.zeros(rays.shape[1] // 256, dtype=torch.int32,
+                         device=rays.device)
+    call(visits)
+    return int(visits.sum()) * group * 256
 
 
 def time_ms(fn, reps: int = 3) -> float:
@@ -169,21 +294,21 @@ def wavefront_rays(scene, sd, dev, n_lanes: int):
     return rays, shadow
 
 
-def check_kernels(scene, sd, dev, n_lanes: int = CHECK_LANES) -> list:
-    """Each kernel against its plain version on the same rays; returns
-    the kernels' JSON records (launch counts filled in later)."""
+def check_kernels(sd, rays, shadow) -> dict:
+    """K1, K2 and K3 against their plain versions on the same rays;
+    returns {kernel name: JSON record} (launch counts filled in
+    later)."""
     import torch
     from nori_tpu_torch.accel import sweep
     from nori_tpu_torch.wavefront import _coarsen_bounds, key_coarsen
 
-    rays, shadow = wavefront_rays(scene, sd, dev, n_lanes)
     tb = sd.tri_tile_bounds
+    n, n_tt, T = rays.shape[1], tb.shape[0], sd.tri_bw.shape[1]
     live = int((rays[6] <= rays[7]).sum())
     live_s = int((shadow[6] <= shadow[7]).sum())
-    log(f"check rays: {rays.shape[1]} lanes, {live} live camera/bounce, "
-        f"{live_s} live shadow; {tb.shape[0]} tiles, "
-        f"{sd.tri_bw.shape[1]} triangles")
-    records = []
+    log(f"check rays: {n} lanes, {live} live camera/bounce, "
+        f"{live_s} live shadow; {n_tt} tiles, {T} triangles")
+    records = {}
 
     # K1: bit-exact
     err = 0.0
@@ -198,13 +323,13 @@ def check_kernels(scene, sd, dev, n_lanes: int = CHECK_LANES) -> list:
                 f"{ref.numel()} entries (max |diff| on finite "
                 f"{float((got - ref)[fin].abs().max())})")
         err = max(err, float((got - ref)[torch.isfinite(ref)].abs().max()))
-    records.append(dict(
-        name="entry_min", route="cuda", source="nori_tpu_torch/csrc/entry_min.cu",
-        replaces="nori_tpu/accel/pallas_mt.py:896", max_abs_err=err,
-        ms=time_ms(lambda: sweep.entry_min(tb, rays)),
-        plain_ms=time_ms(lambda: sweep.entry_min_plain(tb, rays))))
+    records["entry_min"] = record(
+        "entry_min", time_ms(lambda: sweep.entry_min(tb, rays)),
+        time_ms(lambda: sweep.entry_min_plain(tb, rays)), err,
+        float(SLAB_OPS) * n * n_tt, 4.0 * (8 * n_tt + 8 * n + n // 256 * n_tt))
     log(f"K1 entry_min: bit-exact on both ray sets; "
-        f"{records[-1]['ms']:.3f} ms vs plain {records[-1]['plain_ms']:.3f} ms")
+        f"{records['entry_min']['ms']:.3f} ms vs plain "
+        f"{records['entry_min']['plain_ms']:.3f} ms")
 
     # K2: hit masks equal, idx equal except at ties, t within rtol 1e-6
     err = 0.0
@@ -236,20 +361,27 @@ def check_kernels(scene, sd, dev, n_lanes: int = CHECK_LANES) -> list:
                     f"resident_sweep {label}: {n_idx} closest-hit triangles "
                     "differ from the plain version")
             err = max(err, float(dt.max()) if dt.numel() else 0.0)
-        timing[label] = (
-            time_ms(lambda: sweep.resident_sweep(op, keys, bits, r, any_hit)),
-            time_ms(lambda: sweep.resident_sweep_plain(op, r, any_hit), 1))
+        pairs = visited_pairs(
+            lambda v: sweep.resident_sweep(op, keys, bits, r, any_hit,
+                                           visits=v), r, sweep.FINE_T)
+        timing[label] = dict(
+            ms=time_ms(lambda: sweep.resident_sweep(op, keys, bits, r,
+                                                    any_hit)),
+            plain_ms=time_ms(lambda: sweep.resident_sweep_plain(op, r,
+                                                                any_hit), 1),
+            pairs=pairs, tiles_per_ray_tile=pairs / 128 / n)
         log(f"K2 resident_sweep {label}: {int(hit_k.sum())} hits agree; "
-            f"{timing[label][0]:.3f} ms vs plain {timing[label][1]:.3f} ms")
-    records.append(dict(
-        name="resident_sweep", route="cuda",
-        source="nori_tpu_torch/csrc/resident_sweep.cu",
-        replaces="nori_tpu/accel/pallas_mt.py:291", max_abs_err=err,
-        ms=timing["bw closest"][0], plain_ms=timing["bw closest"][1]))
+            f"{timing[label]['ms']:.3f} ms vs plain "
+            f"{timing[label]['plain_ms']:.3f} ms; "
+            f"{pairs / 128 / n:.2f} tiles visited per ray tile")
+    bw = timing["bw closest"]
+    records["resident_sweep"] = record(
+        "resident_sweep", bw["ms"], bw["plain_ms"], err,
+        float(PAIR_OPS["bw"]) * bw["pairs"], sweep_bytes(12, T, n, n_tt),
+        by_query=timing)
 
     # K3: bit-exact, on the coarsened bounds the wavefront sorts by
-    kb = _coarsen_bounds(tb, key_coarsen(sd.tri_packed.shape[0],
-                                         tb.shape[0]))
+    kb = _coarsen_bounds(tb, key_coarsen(sd.tri_packed.shape[0], n_tt))
     k1, k2 = sweep.lane_keys(kb, rays)
     p1, p2 = sweep.lane_keys_plain(kb, rays)
     torch.cuda.synchronize()
@@ -257,17 +389,187 @@ def check_kernels(scene, sd, dev, n_lanes: int = CHECK_LANES) -> list:
         raise AssertionError(
             f"lane_keys differs from its plain version on "
             f"{int(((k1 != p1) | (k2 != p2)).sum())} lanes")
-    records.append(dict(
-        name="lane_keys", route="cuda", source="nori_tpu_torch/csrc/lane_keys.cu",
-        replaces="nori_tpu/accel/pallas_mt.py:982", max_abs_err=0.0,
-        ms=time_ms(lambda: sweep.lane_keys(kb, rays)),
-        plain_ms=time_ms(lambda: sweep.lane_keys_plain(kb, rays))))
+    records["lane_keys"] = record(
+        "lane_keys", time_ms(lambda: sweep.lane_keys(kb, rays)),
+        time_ms(lambda: sweep.lane_keys_plain(kb, rays)), 0.0,
+        float(SLAB_OPS) * n * kb.shape[0], 4.0 * (8 * kb.shape[0] + 10 * n))
     log(f"K3 lane_keys: bit-exact on {kb.shape[0]} coarsened groups; "
-        f"{records[-1]['ms']:.3f} ms vs plain {records[-1]['plain_ms']:.3f} ms")
+        f"{records['lane_keys']['ms']:.3f} ms vs plain "
+        f"{records['lane_keys']['plain_ms']:.3f} ms")
     return records
 
 
-def parity_render(dev):
+def check_merged_mxu_k6(sd, rays, shadow) -> dict:
+    """K4, K2-mxu and K6 against their plain versions on the wavefront's
+    rays and their shadow rays; returns {kernel name: JSON record}."""
+    import torch
+    from nori_tpu_torch.accel import sweep
+
+    tb = sd.tri_tile_bounds
+    n, n_tt, T = rays.shape[1], tb.shape[0], sd.tri_bw.shape[1]
+    records = {}
+
+    # K4 on [rays | shadow]: the plain version, and the two K2 launches
+    # it replaces, exactly
+    both = torch.cat([rays, shadow], dim=1).contiguous()
+    n2 = both.shape[1]
+    flags = (torch.arange(n2 // 256, device=rays.device) >= n // 256).to(
+        torch.int32)
+    keys, bits = sweep.ray_tile_entry_keys(tb, both)
+    t_m, i_m = sweep.resident_sweep_mixed(sd.tri_bw, keys, bits, both, flags)
+    t_p, i_p = sweep.resident_sweep_plain(sd.tri_bw, both)
+    err = compare_sweep("resident_sweep_mixed closest tiles",
+                        (t_m[:n], i_m[:n]), (t_p[:n], i_p[:n]), False)
+    compare_sweep("resident_sweep_mixed any-hit tiles", (t_m[n:], i_m[n:]),
+                  (t_p[n:], i_p[n:]), True)
+    kc, bc = sweep.ray_tile_entry_keys(tb, rays)
+    ks, bs = sweep.ray_tile_entry_keys(tb, shadow)
+    t_c, i_c = sweep.resident_sweep(sd.tri_bw, kc, bc, rays, False)
+    _, i_s = sweep.resident_sweep(sd.tri_bw, ks, bs, shadow, True)
+    torch.cuda.synchronize()
+    if not (torch.equal(t_m[:n], t_c) and torch.equal(i_m[:n], i_c)):
+        raise AssertionError("resident_sweep_mixed: closest tiles differ "
+                             "from the closest K2 launch")
+    if not torch.equal(i_m[n:] >= 0, i_s >= 0):
+        raise AssertionError("resident_sweep_mixed: any-hit tiles differ "
+                             "from the any-hit K2 launch")
+    pairs = visited_pairs(lambda v: sweep.resident_sweep_mixed(
+        sd.tri_bw, keys, bits, both, flags, visits=v), both, sweep.FINE_T)
+    ms = time_ms(lambda: sweep.resident_sweep_mixed(sd.tri_bw, keys, bits,
+                                                    both, flags))
+    ms_two = time_ms(lambda: (
+        sweep.resident_sweep(sd.tri_bw, kc, bc, rays, False),
+        sweep.resident_sweep(sd.tri_bw, ks, bs, shadow, True)))
+    records["resident_sweep_mixed"] = record(
+        "resident_sweep_mixed", ms,
+        time_ms(lambda: sweep.resident_sweep_plain(sd.tri_bw, both), 1),
+        err, float(PAIR_OPS["bw"]) * pairs,
+        sweep_bytes(12, T, n2, n_tt) + 4.0 * (n2 // 256),
+        two_k2_ms=ms_two, tiles_per_ray_tile=pairs / 128 / n2)
+    log(f"K4 resident_sweep_mixed ({n} closest + {n} shadow rays): equal to "
+        f"its plain version and to the two K2 launches; {ms:.3f} ms vs the "
+        f"two K2 launches {ms_two:.3f} ms vs plain "
+        f"{records['resident_sweep_mixed']['plain_ms']:.3f} ms")
+
+    # K2-mxu: exact against its plain version; hit masks against BW K2
+    keys, bits = sweep.ray_tile_entry_keys(tb, rays)
+    t_x, i_x = sweep.resident_sweep_mxu(sd.tri_mxu, keys, bits, rays)
+    t_p, i_p = sweep.resident_sweep_mxu_plain(sd.tri_mxu, rays)
+    torch.cuda.synchronize()
+    if not (torch.equal(i_x, i_p) and torch.equal(t_x[i_p >= 0],
+                                                   t_p[i_p >= 0])):
+        raise AssertionError(
+            f"resident_sweep_mxu differs from its plain version on "
+            f"{int((i_x != i_p).sum())} rays")
+    agree = float(((i_x >= 0) == (i_c >= 0)).float().mean())
+    same_tri = float((i_x == i_c).float().mean())
+    if agree < 0.999:
+        raise AssertionError(f"resident_sweep_mxu: hit masks agree with BW "
+                             f"K2 on only {agree:.5f} of rays")
+    _, i_xs = sweep.resident_sweep_mxu(sd.tri_mxu, ks, bs, shadow, True)
+    _, i_ps = sweep.resident_sweep_mxu_plain(sd.tri_mxu, shadow, True)
+    if not torch.equal(i_xs >= 0, i_ps >= 0):
+        raise AssertionError("resident_sweep_mxu any-hit: hit mask differs "
+                             "from its plain version")
+    pairs = visited_pairs(lambda v: sweep.resident_sweep_mxu(
+        sd.tri_mxu, keys, bits, rays, visits=v), rays, sweep.FINE_T)
+    records["resident_sweep_mxu"] = record(
+        "resident_sweep_mxu",
+        time_ms(lambda: sweep.resident_sweep_mxu(sd.tri_mxu, keys, bits,
+                                                 rays)),
+        time_ms(lambda: sweep.resident_sweep_mxu_plain(sd.tri_mxu, rays), 1),
+        0.0, float(PAIR_OPS["mxu"]) * pairs, sweep_bytes(40, T, n, n_tt),
+        hit_mask_agreement_with_bw=agree, same_triangle_as_bw=same_tri,
+        tiles_per_ray_tile=pairs / 128 / n)
+    log(f"K2-mxu resident_sweep_mxu: exact against its plain version "
+        f"(closest and any-hit); hit masks agree with BW K2 on {agree:.6f}, "
+        f"triangles on {same_tri:.6f} of rays; "
+        f"{records['resident_sweep_mxu']['ms']:.3f} ms vs plain "
+        f"{records['resident_sweep_mxu']['plain_ms']:.3f} ms")
+    records["mt_sweep"] = check_k6(sd, rays, shadow)
+    return records
+
+
+def check_k6(sd, rays, shadow) -> dict:
+    """K6, culled, closest and any-hit, against its plain version: hit
+    masks equal; for closest hits t, u and v equal and idx equal except
+    at exact ties in t (the kernel keeps the earlier visit)."""
+    import torch
+    from nori_tpu_torch.accel import sweep
+
+    args = (sd.tri_packed, sd.tri_tile_bounds, sd.scene_bounds)
+    n, T = rays.shape[1], sd.tri_packed.shape[1]
+    n_tt = T // sweep.TILE_T
+    for label, r, any_hit in (("closest", rays, False),
+                              ("any-hit", shadow, True)):
+        t_k, i_k, u_k, v_k = sweep.mt_sweep(*args, r, any_hit=any_hit)
+        t_p, i_p, u_p, v_p = sweep.mt_sweep_plain(sd.tri_packed, r)
+        torch.cuda.synchronize()
+        hit = i_p >= 0
+        if not torch.equal(i_k >= 0, hit):
+            raise AssertionError(f"mt_sweep {label}: hit mask differs from "
+                                 f"its plain version on "
+                                 f"{int(((i_k >= 0) != hit).sum())} rays")
+        if any_hit:
+            continue
+        if not torch.equal(t_k[hit], t_p[hit]):
+            raise AssertionError(f"mt_sweep {label}: t differs from its "
+                                 "plain version")
+        same = hit & (i_k == i_p)
+        diff = hit & (i_k != i_p)
+        if bool(diff.any()):
+            # a different winner only at an exact tie in t
+            rd = r[:, diff]
+            o3, d3 = (rd[0], rd[1], rd[2]), (rd[3], rd[4], rd[5])
+            ok_k, tt_k = sweep._pair_test(sd.tri_packed[:, i_k[diff].long()],
+                                          o3, d3, rd[6], rd[7])
+            ok_p, tt_p = sweep._pair_test(sd.tri_packed[:, i_p[diff].long()],
+                                          o3, d3, rd[6], rd[7])
+            if not (bool(ok_k.all()) and bool(ok_p.all())
+                    and torch.equal(tt_k, tt_p)):
+                raise AssertionError(f"mt_sweep {label}: a winner differs "
+                                     "from its plain version off a tie")
+            log(f"  mt_sweep {label}: {int(diff.sum())} winners differ at "
+                "exact ties in t")
+        if not (torch.equal(u_k[same], u_p[same])
+                and torch.equal(v_k[same], v_p[same])):
+            raise AssertionError(f"mt_sweep {label}: u or v differs from "
+                                 "its plain version")
+    pairs = visited_pairs(lambda v: sweep.mt_sweep(*args, rays, visits=v),
+                          rays, sweep.TILE_T)
+    rec = record(
+        "mt_sweep", time_ms(lambda: sweep.mt_sweep(*args, rays)),
+        time_ms(lambda: sweep.mt_sweep_plain(sd.tri_packed, rays), 1), 0.0,
+        float(PAIR_OPS["mt"]) * pairs + float(SLAB_OPS) * n * n_tt,
+        4.0 * (9 * T + 8 * n + 8 * n_tt + 4 * n),
+        tiles_per_ray_tile=pairs / 512 / n)
+    log(f"K6 mt_sweep (culled, {n_tt} tiles of 512): closest t, u, v equal "
+        f"to its plain version, any-hit masks equal; {rec['ms']:.3f} ms (with "
+        f"its K1 and argsort) vs plain {rec['plain_ms']:.3f} ms; "
+        f"{pairs / 512 / n:.2f} tiles tested per ray tile")
+    return rec
+
+
+def k6_path(sd, rays, shadow) -> dict:
+    """The 2-D sweep as a caller drives it: closest hits of the
+    wavefront's rays and any hits of their shadow rays; returns the
+    launch counts of that run."""
+    import torch
+    from nori_tpu_torch.accel import sweep
+
+    reset_launches()
+    for r, any_hit in ((rays, False), (shadow, True)):
+        sweep.mt_sweep(sd.tri_packed, sd.tri_tile_bounds, sd.scene_bounds, r,
+                       any_hit=any_hit)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"K6 path: launches {launches}")
+    if launches["mt_sweep"] != 2:
+        raise AssertionError("mt_sweep was not launched for both queries")
+    return launches
+
+
+def parity_render(dev, cfg=PARITY, label: str = "parity render"):
     """The port on the card vs the port on the CPU (plain versions):
     ray counts within 0.1% and the exact image gate of
     scripts/rmse_gate.py (RMSE < 1e-3 and < 1% of pixels off by more
@@ -276,7 +578,6 @@ def parity_render(dev):
     from nori_tpu_torch.scenes_builtin import living_room
     from nori_tpu_torch.wavefront import render_wavefront
 
-    cfg = PARITY
     out = {}
     for d in (dev, "cpu"):
         scene = living_room(cfg["width"], cfg["height"], cfg["spp"],
@@ -288,19 +589,23 @@ def parity_render(dev):
     diff = np.abs(img_c - img_p)
     rmse = float(np.sqrt(np.mean((img_c - img_p) ** 2)))
     off = float(np.mean(diff.max(axis=-1) > 1e-3))
-    log(f"parity render {cfg['width']}x{cfg['height']} spp {cfg['spp']}: "
+    log(f"{label} {cfg['width']}x{cfg['height']} spp {cfg['spp']}: "
         f"rays {st_c['rays']} (card) vs {st_p['rays']} (cpu), rmse {rmse:.3e}, "
         f"pixels off {off:.4f}, max |diff| {float(diff.max()):.3e}; "
         f"{st_c['seconds']:.2f} s card, {st_p['seconds']:.2f} s cpu")
     if rel > 1e-3:
-        raise AssertionError(f"parity render: ray counts differ by {rel:.2%}")
+        raise AssertionError(f"{label}: ray counts differ by {rel:.2%}")
     if not (rmse < 1e-3 and off < 0.01):
-        raise AssertionError("parity render: images fail the exact gate")
+        raise AssertionError(f"{label}: images fail the exact gate")
 
 
-def full_render(dev):
+def full_render(dev, label: str, merged: bool = False,
+                sweep_kernel: str = "resident_sweep"):
+    """The full living-room render through render_to_files (see FULL),
+    which must launch K1, K3 and `sweep_kernel`; returns (image, stats,
+    the launch counts of the render)."""
     import numpy as np
-    from nori_tpu_torch.accel import sweep
+    import torch
     from nori_tpu_torch.render import render_to_files
     from nori_tpu_torch.scenes_builtin import living_room
 
@@ -308,25 +613,27 @@ def full_render(dev):
     scene = living_room(cfg["width"], cfg["height"], cfg["spp"],
                         detail=cfg["detail"])
     n_tris = scene.compile_arrays()["tri_bw"].shape[1]
-    kernels = (sweep.entry_min, sweep.resident_sweep, sweep.lane_keys)
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, switches(MERGED_SWEEP=merged):
         base = os.path.join(tmp, "living_room")
-        for k in kernels:
-            k.launches = 0
+        torch.cuda.synchronize()
+        reset_launches()
         img, st = render_to_files(scene, base, seed=SEED,
                                   n_lanes=cfg["n_lanes"], device=dev)
-        launches = {k.__name__: k.launches for k in kernels}
+        torch.cuda.synchronize()
+        launches = read_launches()
         for ext in (".exr", ".png"):
             if os.path.getsize(base + ext) == 0:
                 raise AssertionError(f"empty {ext} output")
-    log(f"full render {cfg['width']}x{cfg['height']} spp {st['spp']}, "
-        f"{n_tris} padded triangles, {cfg['n_lanes']} lanes: "
-        f"{st['seconds']:.2f} s")
+    log(f"{label} {cfg['width']}x{cfg['height']} spp {st['spp']}, "
+        f"{n_tris} padded triangles, {cfg['n_lanes']} lanes, merged "
+        f"{st['merged']}: {st['seconds']:.2f} s")
     log(f"  rays {st['rays']}, {st['mrays_per_sec']:.3f} Mrays/s, "
         f"{st['samples_per_sec']:.1f} samples/s, occupancy "
         f"{st['occupancy']:.4f}, steps {st['steps']} "
         f"(wide {st['wide_steps']})")
     log(f"  launches {launches}")
+    if st["merged"] != merged:
+        raise AssertionError(f"{label}: merged is {st['merged']}")
     if img.shape != (cfg["height"], cfg["width"], 3):
         raise AssertionError(f"image shape {img.shape}")
     if not np.isfinite(img).all():
@@ -335,11 +642,68 @@ def full_render(dev):
     log(f"  mean radiance {mean:.4f} (expected {MEAN_RANGE})")
     if not MEAN_RANGE[0] <= mean <= MEAN_RANGE[1]:
         raise AssertionError(f"mean radiance {mean} outside {MEAN_RANGE}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 "main path")
-    return launches
+    for name in ("entry_min", "lane_keys", sweep_kernel):
+        if launches[name] <= 0:
+            raise AssertionError(f"{label}: kernel {name} never launched")
+    return img, st, launches
+
+
+def merged_renders(dev, img_two, st_two) -> dict:
+    """The full render with the merged step, alternated with the
+    two-launch render (two-launch, merged, merged, two-launch, the
+    first given): every image bit-equal to the two-launch one, the same
+    rays; K4 on every step and K2 exactly once (the priming sweep of
+    the one chunk).  Returns the first merged render's launches and
+    both series of times."""
+    import numpy as np
+
+    times = {"two_launch": [st_two["seconds"]], "merged": []}
+    out = None
+    for i, merged in enumerate((True, True, False)):
+        label = "merged render" if merged else "two-launch render"
+        img, st, launches = full_render(
+            dev, f"{label} {i + 1}", merged,
+            "resident_sweep_mixed" if merged else "resident_sweep")
+        times["merged" if merged else "two_launch"].append(st["seconds"])
+        if st["rays"] != st_two["rays"] or not np.array_equal(img, img_two):
+            raise AssertionError(f"{label} {i + 1}: image or rays differ from "
+                                 "the two-launch render")
+        if merged:
+            if launches["resident_sweep_mixed"] != st["steps"]:
+                raise AssertionError(
+                    f"K4 launched {launches['resident_sweep_mixed']} times "
+                    f"in {st['steps']} steps")
+            if launches["resident_sweep"] != 1:
+                raise AssertionError(
+                    f"K2 launched {launches['resident_sweep']} times; the "
+                    "merged render primes once")
+            out = out or launches
+    log(f"merged vs two-launch: images bit-equal, rays equal; seconds "
+        f"two-launch {times['two_launch']}, merged {times['merged']}")
+    return dict(launches=out, seconds=times)
+
+
+def mxu_renders(dev, img_bw, st_bw) -> dict:
+    """USE_MXU_SWEEP: the parity render card vs CPU (exact gate), then
+    the full render: mean radiance within 1% of the BW render's, rays
+    within 0.1% (a changed hit re-seeds a path, so not bit-equal).
+    Returns the full render's launches."""
+    with switches(USE_MXU_SWEEP=True):
+        parity_render(dev, MXU_PARITY, "mxu parity render")
+        img, st, launches = full_render(dev, "mxu full render",
+                                        sweep_kernel="resident_sweep_mxu")
+    if launches["resident_sweep"] or not launches["resident_sweep_mxu"]:
+        raise AssertionError("the MXU render did not sweep with K2-mxu")
+    d_mean = abs(float(img.mean()) / float(img_bw.mean()) - 1.0)
+    d_rays = abs(st["rays"] / st_bw["rays"] - 1.0)
+    log(f"mxu vs bw full render: mean radiance {float(img.mean()):.6f} vs "
+        f"{float(img_bw.mean()):.6f} ({d_mean:.3e} apart), rays "
+        f"{st['rays']} vs {st_bw['rays']} ({d_rays:.3e} apart)")
+    if d_mean > 0.01 or d_rays > 1e-3:
+        raise AssertionError("mxu render: mean radiance or rays off the BW "
+                             "render's")
+    return dict(launches=launches, seconds=st["seconds"], rays=st["rays"],
+                mean_rel_diff=d_mean, rays_rel_diff=d_rays)
 
 
 # ---------------------------------------------------------------------------
@@ -476,9 +840,12 @@ def check_ajax_kernels(dev) -> dict:
         if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
             raise AssertionError("entry_min differs from its plain version "
                                  "on the slab bounds")
+    n_tt, T = tb.shape[0], sd.tri_packed.shape[1]
     out["entry_min"] = dict(
         max_abs_err=0.0, ms=time_ms(lambda: sweep.entry_min(tb, rays)),
-        plain_ms=time_ms(lambda: sweep.entry_min_plain(tb, rays)))
+        plain_ms=time_ms(lambda: sweep.entry_min_plain(tb, rays)),
+        **bound(float(SLAB_OPS) * n * n_tt,
+                4.0 * (8 * n_tt + 8 * n + n // 256 * n_tt)))
     log(f"K1 entry_min (slabs): bit-exact; {out['entry_min']['ms']:.3f} ms "
         f"vs plain {out['entry_min']['plain_ms']:.3f} ms")
 
@@ -492,39 +859,86 @@ def check_ajax_kernels(dev) -> dict:
                 f"bounds on {int(((k1 != p1) | (k2 != p2)).sum())} lanes")
     out["lane_keys"] = dict(
         max_abs_err=0.0, ms=time_ms(lambda: sweep.lane_keys(tb, shadow)),
-        plain_ms=time_ms(lambda: sweep.lane_keys_plain(tb, shadow)))
+        plain_ms=time_ms(lambda: sweep.lane_keys_plain(tb, shadow)),
+        **bound(float(SLAB_OPS) * n * n_tt, 4.0 * (8 * n_tt + 10 * n)))
     log(f"K3 lane_keys ({tb.shape[0]} slabs): bit-exact; "
         f"{out['lane_keys']['ms']:.3f} ms vs plain "
         f"{out['lane_keys']['plain_ms']:.3f} ms")
 
-    err, timing = 0.0, {}
+    err, timing, uncut = 0.0, {}, {}
     for label, use_bw, r, any_hit in (
             ("bw closest", True, rays, False),
             ("mt closest", False, rays, False),
-            ("bw any-hit", True, shadow, True)):
+            ("bw any-hit", True, shadow, True),
+            ("mt any-hit", False, shadow, True)):
         op = sd.tri_bw if use_bw else sd.tri_packed
         keys, bits = sweep.ray_tile_entry_keys(tb, r)
 
-        def kern():
-            return sweep.stream_sweep(op, keys, bits, r, any_hit, use_bw)
+        def kern(v=None):
+            return sweep.stream_sweep(op, keys, bits, r, any_hit, use_bw,
+                                      visits=v)
 
         def plain():
             return sweep.stream_sweep_plain(op, r, any_hit, use_bw)
 
         got = kern()
+        if not use_bw:
+            uncut[any_hit] = got
         err = max(err, compare_sweep(f"stream_sweep {label}", got, plain(),
                                      any_hit))
-        timing[label] = (time_ms(kern), time_ms(plain, 1))
+        pairs = visited_pairs(kern, r, sweep.STREAM_T)
+        timing[label] = dict(ms=time_ms(kern), plain_ms=time_ms(plain, 1),
+                             pairs=pairs)
         log(f"K5 stream_sweep {label}: {int((got[1] >= 0).sum())} hits "
-            f"agree; {timing[label][0]:.3f} ms vs plain "
-            f"{timing[label][1]:.3f} ms")
+            f"agree; {timing[label]['ms']:.3f} ms vs plain "
+            f"{timing[label]['plain_ms']:.3f} ms; "
+            f"{pairs / 512 / n:.2f} slabs visited per ray tile")
     timing.update(check_sorted_any_hit(sd, dev))
-    out["stream_sweep"] = dict(
-        name="stream_sweep", route="cuda",
-        source="nori_tpu_torch/csrc/stream_sweep.cu",
-        replaces="nori_tpu/accel/pallas_mt.py:526", max_abs_err=err,
-        ms=timing["bw closest"][0], plain_ms=timing["bw closest"][1],
-        by_query={k: dict(ms=v[0], plain_ms=v[1]) for k, v in timing.items()})
+    bw = timing["bw closest"]
+    out["stream_sweep"] = record(
+        "stream_sweep", bw["ms"], bw["plain_ms"], err,
+        float(PAIR_OPS["bw"]) * bw["pairs"], sweep_bytes(12, T, n, n_tt),
+        by_query=timing)
+
+    # K5-cull: the MT operand in sub-blocks of CULL_T, against its plain
+    # version and against K5 uncut, exactly
+    err, timing = 0.0, {}
+    for label, r, any_hit in (("mt closest", rays, False),
+                              ("mt any-hit", shadow, True)):
+        keys, bits = sweep.ray_tile_entry_keys(tb, r)
+
+        def kern(v=None):
+            return sweep.stream_sweep_culled(sd.tri_packed, keys, bits, r,
+                                             any_hit, CULL_T, visits=v)
+
+        def plain():
+            return sweep.stream_sweep_plain(sd.tri_packed, r, any_hit, False)
+
+        got = kern()
+        err = max(err, compare_sweep(f"stream_sweep_culled {label}", got,
+                                     plain(), any_hit))
+        (t_c, i_c), (t_u, i_u) = got, uncut[any_hit]
+        same = (torch.equal(i_c >= 0, i_u >= 0) if any_hit else
+                torch.equal(i_c, i_u) and torch.equal(t_c, t_u))
+        if not same:
+            raise AssertionError(f"stream_sweep_culled {label}: differs from "
+                                 "K5 uncut")
+        pairs = visited_pairs(kern, r, CULL_T)
+        timing[label] = dict(
+            ms=time_ms(kern), plain_ms=time_ms(plain, 1), pairs=pairs,
+            uncut_ms=out["stream_sweep"]["by_query"][label]["ms"])
+        log(f"K5-cull stream_sweep_culled {label}: equal to its plain "
+            f"version and to K5 uncut; {timing[label]['ms']:.3f} ms vs plain "
+            f"{timing[label]['plain_ms']:.3f} ms, K5 uncut "
+            f"{timing[label]['uncut_ms']:.3f} ms; "
+            f"{pairs / CULL_T / n:.2f} sub-blocks of {CULL_T} tested per "
+            "ray tile")
+    mt = timing["mt closest"]
+    out["stream_sweep_culled"] = record(
+        "stream_sweep_culled", mt["ms"], mt["plain_ms"], err,
+        float(PAIR_OPS["mt"]) * mt["pairs"],
+        sweep_bytes(9, T, n, n_tt) + 4.0 * 8 * (T // CULL_T),
+        by_query=timing)
     return out
 
 
@@ -533,8 +947,8 @@ def check_sorted_any_hit(sd, dev):
     of ajax_rough, swept in the order traverse.occluded sorts them (K3
     keys on the 1,058 slab bounds), against the plain sweep of the same
     rays unsorted; then the kernel on the unsorted rays and
-    traverse.occluded itself against it.  Returns {label: (kernel ms,
-    plain ms)} for the sorted and the unsorted order."""
+    traverse.occluded itself against it.  Returns {label: {ms,
+    plain_ms}} for the sorted and the unsorted order."""
     import torch
     from nori_tpu_torch.accel import sweep, traverse
     from nori_tpu_torch.render import DEFAULT_BATCH
@@ -588,11 +1002,12 @@ def check_sorted_any_hit(sd, dev):
         f"{ms:.3f} ms vs plain {plain_ms:.3f} ms; the same rays unsorted "
         f"agree too, {ms_u:.3f} ms; the sort (K3, argsort, gather) "
         f"{sort_ms:.3f} ms")
-    return {"bw any-hit sorted": (ms, plain_ms),
-            "bw any-hit unsorted": (ms_u, plain_ms)}
+    return {"bw any-hit sorted": dict(ms=ms, plain_ms=plain_ms,
+                                      sort_ms=sort_ms),
+            "bw any-hit unsorted": dict(ms=ms_u, plain_ms=plain_ms)}
 
 
-def gate(label: str, a, st_a, b, st_b):
+def gate(label: str, a, st_a, b, st_b, names=("card", "cpu")):
     """Equal ray counts and the exact image gate of scripts/rmse_gate.py
     (RMSE < 1e-3 and < 1% of pixels off by more than 1e-3)."""
     import numpy as np
@@ -600,10 +1015,11 @@ def gate(label: str, a, st_a, b, st_b):
     diff = np.abs(a - b)
     rmse = float(np.sqrt(np.mean((a - b) ** 2)))
     off = float(np.mean(diff.max(axis=-1) > 1e-3))
-    log(f"{label}: rays {st_a['rays']} (card) vs {st_b['rays']} (cpu), "
+    na, nb = names
+    log(f"{label}: rays {st_a['rays']} ({na}) vs {st_b['rays']} ({nb}), "
         f"rmse {rmse:.3e}, pixels off {off:.4f}, max |diff| "
         f"{float(diff.max()):.3e}, mean {float(a.mean()):.4f}; "
-        f"{st_a['seconds']:.2f} s card, {st_b['seconds']:.2f} s cpu")
+        f"{st_a['seconds']:.2f} s {na}, {st_b['seconds']:.2f} s {nb}")
     if st_a["rays"] != st_b["rays"]:
         raise AssertionError(f"{label}: ray counts differ")
     if not (rmse < 1e-3 and off < 0.01):
@@ -630,53 +1046,78 @@ def ajax_parity(dev):
              img_p, st_p)
 
 
+def ajax_render(dev, name: str, integrator: str, spp: int, band,
+                sweep_kernel: str = "stream_sweep"):
+    """One full ajax render through render_to_files, which must launch
+    K1 and `sweep_kernel` (and K3 for whitted's shadow sort) and never
+    K2; returns (image, stats, the launch counts of the render)."""
+    import numpy as np
+    import torch
+    from nori_tpu_torch.render import render_to_files
+
+    scene = ajax_scene(AJAX_SIZE, AJAX_SIZE, spp, integrator)
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, name)
+        torch.cuda.synchronize()
+        reset_launches()
+        img, st = render_to_files(scene, base, seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        n = read_launches()
+        for ext in (".exr", ".png"):
+            if os.path.getsize(base + ext) == 0:
+                raise AssertionError(f"{name}: empty {ext} output")
+    mean = float(img.mean())
+    log(f"{name} {AJAX_SIZE}x{AJAX_SIZE} spp {st['spp']} "
+        f"({integrator}): {st['seconds']:.2f} s, rays {st['rays']}, "
+        f"{st['mrays_per_sec']:.3f} Mrays/s, "
+        f"{st['samples_per_sec']:.1f} samples/s, mean radiance "
+        f"{mean:.4f} (expected {band}); launches {n}")
+    if img.shape != (AJAX_SIZE, AJAX_SIZE, 3):
+        raise AssertionError(f"{name}: image shape {img.shape}")
+    if not np.isfinite(img).all():
+        raise AssertionError(f"{name}: non-finite values")
+    if band is not None and not band[0] <= mean <= band[1]:
+        raise AssertionError(f"{name}: mean radiance {mean} outside {band}")
+    if integrator == "normals" and st["rays"] != AJAX_SIZE ** 2 * spp:
+        raise AssertionError(f"{name}: {st['rays']} rays, expected "
+                             f"{AJAX_SIZE ** 2 * spp}")
+    need = ["entry_min", sweep_kernel] + (
+        ["lane_keys"] if integrator == "whitted" else [])
+    for k in need:
+        if n[k] <= 0:
+            raise AssertionError(f"{name}: kernel {k} never launched")
+    if n["resident_sweep"] != 0:
+        raise AssertionError(f"{name}: the resident sweep ran on a "
+                             "streamed scene")
+    return img, st, n
+
+
 def ajax_full_renders(dev) -> dict:
     """ajax_normals and ajax_rough at full size through render_to_files;
     returns {render name: {kernel name: launches}}."""
-    import numpy as np
-    from nori_tpu_torch.accel import sweep
-    from nori_tpu_torch.render import render_to_files
+    return {name: ajax_render(dev, name, *spec)[2]
+            for name, spec in AJAX_FULL.items()}
 
-    kernels = (sweep.entry_min, sweep.resident_sweep, sweep.lane_keys,
-               sweep.stream_sweep)
-    launches = {}
-    for name, (integrator, spp, band) in AJAX_FULL.items():
-        scene = ajax_scene(AJAX_SIZE, AJAX_SIZE, spp, integrator)
-        with tempfile.TemporaryDirectory() as tmp:
-            base = os.path.join(tmp, name)
-            for k in kernels:
-                k.launches = 0
-            img, st = render_to_files(scene, base, seed=SEED, device=dev)
-            n = {k.__name__: k.launches for k in kernels}
-            for ext in (".exr", ".png"):
-                if os.path.getsize(base + ext) == 0:
-                    raise AssertionError(f"{name}: empty {ext} output")
-        launches[name] = n
-        mean = float(img.mean())
-        log(f"{name} {AJAX_SIZE}x{AJAX_SIZE} spp {st['spp']} "
-            f"({integrator}): {st['seconds']:.2f} s, rays {st['rays']}, "
-            f"{st['mrays_per_sec']:.3f} Mrays/s, "
-            f"{st['samples_per_sec']:.1f} samples/s, mean radiance "
-            f"{mean:.4f} (expected {band}); launches {n}")
-        if img.shape != (AJAX_SIZE, AJAX_SIZE, 3):
-            raise AssertionError(f"{name}: image shape {img.shape}")
-        if not np.isfinite(img).all():
-            raise AssertionError(f"{name}: non-finite values")
-        if band is not None and not band[0] <= mean <= band[1]:
-            raise AssertionError(f"{name}: mean radiance {mean} outside "
-                                 f"{band}")
-        if integrator == "normals" and st["rays"] != AJAX_SIZE ** 2 * spp:
-            raise AssertionError(f"{name}: {st['rays']} rays, expected "
-                                 f"{AJAX_SIZE ** 2 * spp}")
-        need = ["entry_min", "stream_sweep"] + (
-            ["lane_keys"] if integrator == "whitted" else [])
-        for k in need:
-            if n[k] <= 0:
-                raise AssertionError(f"{name}: kernel {k} never launched")
-        if n["resident_sweep"] != 0:
-            raise AssertionError(f"{name}: the resident sweep ran on a "
-                                 "streamed scene")
-    return launches
+
+def ajax_cull_renders(dev) -> dict:
+    """ajax_normals on the Moller-Trumbore operand, uncut and then with
+    sub-slab culling (config.STREAM_CULL_T = CULL_T): the culled image
+    passes the exact gate against the uncut one, with equal rays, and
+    sweeps with K5-cull only.  Returns the culled render's launches."""
+    integrator, spp, band = AJAX_FULL["ajax_normals"]
+    with switches(USE_BW_SWEEP=False):
+        img_u, st_u, _ = ajax_render(dev, "ajax_normals mt uncut",
+                                     integrator, spp, band)
+        with switches(STREAM_CULL_T=CULL_T):
+            img_c, st_c, n = ajax_render(dev, "ajax_normals mt culled",
+                                         integrator, spp, band,
+                                         "stream_sweep_culled")
+    if n["stream_sweep"]:
+        raise AssertionError("the culled render launched K5 uncut")
+    gate("ajax_normals culled vs uncut", img_c, st_c, img_u, st_u,
+         ("culled", "uncut"))
+    return dict(launches=n, seconds=st_c["seconds"],
+                uncut_seconds=st_u["seconds"])
 
 
 def _kernel_group(name: str) -> str:
@@ -784,26 +1225,62 @@ def main() -> int:
     with phase("living room: kernel checks"):
         scene = living_room(cfg["width"], cfg["height"], cfg["spp"],
                             detail=cfg["detail"])
-        records = check_kernels(scene, scene.compile(dev), dev)
+        sd = scene.compile(dev)
+        rays, shadow = wavefront_rays(scene, sd, dev, CHECK_LANES)
+        records = check_kernels(sd, rays, shadow)
+    with phase("living room: K4, K2-mxu and K6 checks"):
+        records.update(check_merged_mxu_k6(sd, rays, shadow))
+    with phase("living room: K6 path"):
+        paths = {"k6_path": k6_path(sd, rays, shadow)}
+    del rays, shadow
     with phase("living room: parity render"):
         parity_render(dev)
     with phase("living room: full render"):
-        launches = full_render(dev)
+        img_two, st_two, paths["living_room"] = full_render(
+            dev, "full render")
+    with phase("living room: merged full render"):
+        merged = merged_renders(dev, img_two, st_two)
+        paths["living_room_merged"] = merged["launches"]
+    with phase("living room: MXU"):
+        mxu = mxu_renders(dev, img_two, st_two)
+        paths["living_room_mxu"] = mxu["launches"]
+    del img_two
     with phase("ajax: kernel checks"):
         ajax = check_ajax_kernels(dev)
     with phase("ajax: parity renders"):
         ajax_parity(dev)
     with phase("ajax: full renders"):
-        ajax_launches = ajax_full_renders(dev)
-    records.append(ajax.pop("stream_sweep"))
-    for r in records:
-        if r["name"] in ajax:
-            r["ajax_slabs"] = ajax[r["name"]]
-        r["launches_by_path"] = {"living_room": launches.get(r["name"], 0)}
-        r["launches_by_path"].update(
-            {k: v[r["name"]] for k, v in ajax_launches.items()})
-        r["launches"] = sum(r["launches_by_path"].values())
-    print(json.dumps({"kernels": records}))
+        paths.update(ajax_full_renders(dev))
+    with phase("ajax: culled renders"):
+        cull = ajax_cull_renders(dev)
+        paths["ajax_normals_culled"] = cull["launches"]
+    for name in ("stream_sweep", "stream_sweep_culled"):
+        records[name] = ajax.pop(name)
+    for name, sub in ajax.items():
+        records[name]["ajax_slabs"] = sub
+    records["resident_sweep_mixed"]["render_seconds"] = merged["seconds"]
+    records["resident_sweep_mxu"]["render"] = {
+        k: v for k, v in mxu.items() if k != "launches"}
+    records["stream_sweep_culled"]["render_seconds"] = {
+        "culled": cull["seconds"], "uncut": cull["uncut_seconds"]}
+    # each kernel's launches come from the path that runs it
+    main_path = {"entry_min": "living_room", "resident_sweep": "living_room",
+                 "lane_keys": "living_room",
+                 "resident_sweep_mixed": "living_room_merged",
+                 "resident_sweep_mxu": "living_room_mxu",
+                 "stream_sweep": "ajax_rough",
+                 "stream_sweep_culled": "ajax_normals_culled",
+                 "mt_sweep": "k6_path"}
+    rows = []
+    for name in KERNELS:
+        r = records[name]
+        r["path"] = main_path[name]
+        r["launches"] = paths[main_path[name]][name]
+        r["launches_by_path"] = {p: n[name] for p, n in paths.items()}
+        if r["launches"] <= 0:
+            raise AssertionError(f"kernel {name} never launched on its path")
+        rows.append(r)
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

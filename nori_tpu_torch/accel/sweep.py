@@ -1,19 +1,26 @@
 """Ray/triangle sweep kernels and their plain PyTorch versions.
 
-Counterpart of `nori_tpu/accel/pallas_mt.py` for the kernels on the
-persistent wavefront's path:
+Counterpart of `nori_tpu/accel/pallas_mt.py`, every kernel of it:
 
-  K1 `entry_min`       <- `_entry_kernel`       (pallas_mt.py:896)
-  K2 `resident_sweep`  <- `_mt_resident_kernel` (pallas_mt.py:291)
-  K3 `lane_keys`       <- `_lane_key_kernel`    (pallas_mt.py:982)
-  K5 `stream_sweep`    <- `_mt_stream_kernel`   (pallas_mt.py:526)
+  K1 `entry_min`             <- `_entry_kernel`       (pallas_mt.py:896)
+  K2 `resident_sweep`        <- `_mt_resident_kernel` (pallas_mt.py:291)
+  K2-mxu `resident_sweep_mxu`    the same, `use_mxu=True`
+  K3 `lane_keys`             <- `_lane_key_kernel`    (pallas_mt.py:982)
+  K4 `resident_sweep_mixed`      the same, `mixed=True`
+  K5 `stream_sweep`          <- `_mt_stream_kernel`   (pallas_mt.py:526)
+  K5-cull `stream_sweep_culled`  the same, `n_sub > 1`
+  K6 `mt_sweep`              <- `_mt_kernel`          (pallas_mt.py:77)
 
 Each wrapper launches its CUDA kernel (nori_tpu_torch/csrc/) for
 tensors on a CUDA device and uses its plain version, defined beside it,
 only for tensors on the CPU; there is no fallback from a failed kernel.
 Each counts its kernel launches in a plain integer attribute
 (`entry_min.launches`, ...), which a run can reset and read to show
-that its main path went through the kernels.
+that its main path went through the kernels.  The sweeps take an
+optional `visits` tensor, (n_rt,) int32 on the card, into which the
+kernel writes how many triangle groups each ray tile tested (the work
+a run's data needs, for the kernels' bounds); the plain versions sweep
+densely and leave it untouched.
 
 Layouts are the JAX package's: rays (8, N) [o | d | mint | maxt] with
 N a multiple of TILE_N (pack_rays pads), tile bounds (n_tt, 8)
@@ -33,6 +40,7 @@ from nori_tpu_torch import cuda_build
 TILE_N = 256   # rays per ray tile
 FINE_T = 128   # triangles per triangle tile
 STREAM_T = 512  # triangles per slab of the streamed sweep
+TILE_T = 512   # triangles per tile of the 2-D sweep (K6)
 #: ray-triangle pairs per chunk of the dense plain sweep (bounds its
 #: temporaries to 16 MB each)
 _PLAIN_PAIRS = 1 << 22
@@ -73,6 +81,17 @@ def _check_rays(rays: torch.Tensor):
 
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _visits_ptr(visits, n_rt: int, device) -> int:
+    """Device pointer of an optional (n_rt,) int32 visit count, or 0."""
+    if visits is None:
+        return 0
+    _check(visits, "visits", torch.int32, 1, device)
+    if visits.shape[0] != n_rt:
+        raise ValueError(f"visits: expected ({n_rt},), got "
+                         f"{tuple(visits.shape)}")
+    return visits.data_ptr()
 
 
 def _raise_on(err: int, kernel: str):
@@ -172,6 +191,11 @@ def _pair_test(tris, o, d, mint, maxt):
     """Rays (n, 1) columns against a (rows, C) operand block; returns
     (hit, t) of shape (n, C).  The expressions round as the kernel's
     (left-to-right sums, no fused multiply-add)."""
+    return _pair_test_uv(tris, o, d, mint, maxt)[:2]
+
+
+def _pair_test_uv(tris, o, d, mint, maxt):
+    """_pair_test, also returning the raw barycentrics: (hit, t, u, v)."""
     ox, oy, oz = o
     dx, dy, dz = d
     if tris.shape[0] == 12:
@@ -201,7 +225,47 @@ def _pair_test(tris, o, d, mint, maxt):
         t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
     hit = (ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
            & (t >= mint) & (t <= maxt))
-    return hit, t
+    return hit, t, u, v
+
+
+def _dense_closest(T: int, test, rays, n_extra: int = 0):
+    """Dense closest-hit sweep of every live ray against T triangles,
+    chunked over triangles.  test(c0, c1, o, d, mint, maxt) gives (hit,
+    t, *extra) for triangles [c0, c1) as (m, c1 - c0) arrays.  Returns
+    (t (N,) f32, idx (N,) int32, *extra at the winner): idx -1 and t
+    +inf on a miss, the lowest index winning ties in t."""
+    n = rays.shape[1]
+    dev = rays.device
+    t_out = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
+    idx_out = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    extra_out = [torch.zeros((n,), dtype=torch.float32, device=dev)
+                 for _ in range(n_extra)]
+    sel = torch.nonzero(rays[6] <= rays[7]).squeeze(1)
+    m = sel.shape[0]
+    if m == 0:
+        return (t_out, idx_out, *extra_out)
+    r = rays[:, sel]
+    o = (r[0][:, None], r[1][:, None], r[2][:, None])
+    d = (r[3][:, None], r[4][:, None], r[5][:, None])
+    mint, maxt = r[6][:, None], r[7][:, None]
+    chunk = max(FINE_T, _PLAIN_PAIRS // m // FINE_T * FINE_T)
+    best_t = torch.full((m,), float("inf"), dtype=torch.float32, device=dev)
+    best_i = torch.full((m,), -1, dtype=torch.int64, device=dev)
+    best_x = [torch.zeros((m,), dtype=torch.float32, device=dev)
+              for _ in range(n_extra)]
+    for c0 in range(0, T, chunk):
+        hit, t, *extra = test(c0, min(c0 + chunk, T), o, d, mint, maxt)
+        tmin, j = torch.min(torch.where(hit, t, float("inf")), dim=1)
+        better = tmin < best_t   # strict: earlier chunks win ties
+        best_t = torch.where(better, tmin, best_t)
+        best_i = torch.where(better, j + c0, best_i)
+        best_x = [torch.where(better, x.gather(1, j[:, None])[:, 0], b)
+                  for x, b in zip(extra, best_x)]
+    t_out[sel] = best_t
+    idx_out[sel] = best_i.to(torch.int32)
+    for x, b in zip(extra_out, best_x):
+        x[sel] = b
+    return (t_out, idx_out, *extra_out)
 
 
 def resident_sweep_plain(tris_op, rays, any_hit: bool = False):
@@ -212,35 +276,41 @@ def resident_sweep_plain(tris_op, rays, any_hit: bool = False):
     so the dense sweep gives the same closest hit.  For any-hit only
     idx >= 0 is meaningful (here it is the closest hit)."""
     del any_hit
+
+    def test(c0, c1, o, d, mint, maxt):
+        return _pair_test(tris_op[:, c0:c1], o, d, mint, maxt)
+
+    return _dense_closest(tris_op.shape[1], test, rays)
+
+
+def _check_keys(keys, idx_bits: int, n_rt: int, n_tt: int, unit: str):
+    if tuple(keys.shape) != (n_rt, n_tt):
+        raise ValueError(f"keys: expected ({n_rt}, {n_tt}), got "
+                         f"{tuple(keys.shape)}")
+    # tile indices sit below the entry bits' low mantissa (< 23 bits)
+    if not 1 <= idx_bits <= 22 or (1 << idx_bits) < n_tt:
+        raise ValueError(f"idx_bits {idx_bits} cannot index {n_tt} {unit}")
+
+
+_OP_MT, _OP_BW, _OP_MXU = 0, 1, 2
+
+
+def _resident_launch(op: int, tris_op, T: int, keys, idx_bits: int, rays,
+                     any_hit: bool, tile_ah, visits):
     n = rays.shape[1]
-    T = tris_op.shape[1]
-    dev = rays.device
-    t_out = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
-    idx_out = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    sel = torch.nonzero(rays[6] <= rays[7]).squeeze(1)
-    m = sel.shape[0]
-    if m == 0:
-        return t_out, idx_out
-    r = rays[:, sel]
-    o = (r[0][:, None], r[1][:, None], r[2][:, None])
-    d = (r[3][:, None], r[4][:, None], r[5][:, None])
-    mint, maxt = r[6][:, None], r[7][:, None]
-    chunk = max(FINE_T, _PLAIN_PAIRS // m // FINE_T * FINE_T)
-    best_t = torch.full((m,), float("inf"), dtype=torch.float32, device=dev)
-    best_i = torch.full((m,), -1, dtype=torch.int64, device=dev)
-    for c0 in range(0, T, chunk):
-        hit, t = _pair_test(tris_op[:, c0:c0 + chunk], o, d, mint, maxt)
-        tmin, j = torch.min(torch.where(hit, t, float("inf")), dim=1)
-        better = tmin < best_t   # strict: earlier chunks win ties
-        best_t = torch.where(better, tmin, best_t)
-        best_i = torch.where(better, j + c0, best_i)
-    t_out[sel] = best_t
-    idx_out[sel] = best_i.to(torch.int32)
-    return t_out, idx_out
+    t = torch.empty((n,), dtype=torch.float32, device=rays.device)
+    idx = torch.empty((n,), dtype=torch.int32, device=rays.device)
+    lib = cuda_build.load()
+    err = lib.resident_sweep_launch(
+        tris_op.data_ptr(), op, T, keys.data_ptr(), keys.shape[1],
+        idx_bits, rays.data_ptr(), n, t.data_ptr(), idx.data_ptr(),
+        int(any_hit), 0 if tile_ah is None else tile_ah.data_ptr(),
+        _visits_ptr(visits, n // TILE_N, rays.device), _stream(rays.device))
+    return t, idx, err
 
 
 def resident_sweep(tris_op, keys, idx_bits: int, rays,
-                   any_hit: bool = False):
+                   any_hit: bool = False, visits=None):
     """K2 wrapper: (t (N,) f32, idx (N,) int32) for (8, N) rays against
     the (9, T) or (12, T) operand, walking `keys` from
     ray_tile_entry_keys.
@@ -260,28 +330,146 @@ def resident_sweep(tris_op, keys, idx_bits: int, rays,
     if rows not in (9, 12) or T % FINE_T:
         raise ValueError(f"tris_op: expected (9|12, T) with T % {FINE_T} "
                          f"== 0, got {tuple(tris_op.shape)}")
-    n_tt = T // FINE_T
-    if tuple(keys.shape) != (n // TILE_N, n_tt):
-        raise ValueError(f"keys: expected ({n // TILE_N}, {n_tt}), got "
-                         f"{tuple(keys.shape)}")
-    # tile indices sit below the entry bits' low mantissa (< 23 bits)
-    if not 1 <= idx_bits <= 22 or (1 << idx_bits) < n_tt:
-        raise ValueError(f"idx_bits {idx_bits} cannot index {n_tt} tiles")
+    _check_keys(keys, idx_bits, n // TILE_N, T // FINE_T, "tiles")
     if rays.device.type == "cpu":
         return resident_sweep_plain(tris_op, rays, any_hit)
-    t = torch.empty((n,), dtype=torch.float32, device=rays.device)
-    idx = torch.empty((n,), dtype=torch.int32, device=rays.device)
-    lib = cuda_build.load()
-    err = lib.resident_sweep_launch(
-        tris_op.data_ptr(), rows, T, keys.data_ptr(), keys.shape[1],
-        idx_bits, rays.data_ptr(), n, t.data_ptr(), idx.data_ptr(),
-        int(any_hit), _stream(rays.device))
+    t, idx, err = _resident_launch(_OP_BW if rows == 12 else _OP_MT, tris_op,
+                                   T, keys, idx_bits, rays, any_hit, None,
+                                   visits)
     resident_sweep.launches += 1
     _raise_on(err, "resident_sweep")
     return t, idx
 
 
 resident_sweep.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: the mixed resident sweep (closest and any-hit ray tiles, one launch)
+# ---------------------------------------------------------------------------
+
+def resident_sweep_mixed(tris_op, keys, idx_bits: int, rays, tile_ah,
+                         visits=None):
+    """K4 wrapper: K2 over (8, N) rays whose 256-ray tiles are each
+    flagged closest (0) or any-hit (nonzero) by tile_ah, (N / 256,)
+    int32, in one launch.  Returns (t, idx) as resident_sweep; for
+    any-hit tiles only idx >= 0 is meaningful.
+
+    Kernel: csrc/resident_sweep.cu with a non-null tile_ah, replacing
+    pallas_mt.py `_mt_resident_kernel` with `mixed=True`
+    (`mt_sweep_resident_mixed`).  Each block reads its flag once and
+    takes the closest or the any-hit exit rule as a block-uniform
+    branch.  The plain version is resident_sweep_plain over all rays:
+    it is dense, so the flags change nothing for it.
+    """
+    _check_rays(rays)
+    _check(tris_op, "tris_op", torch.float32, 2, rays.device)
+    _check(keys, "keys", torch.int32, 2, rays.device)
+    _check(tile_ah, "tile_ah", torch.int32, 1, rays.device)
+    rows, T = tris_op.shape
+    n = rays.shape[1]
+    if rows not in (9, 12) or T % FINE_T:
+        raise ValueError(f"tris_op: expected (9|12, T) with T % {FINE_T} "
+                         f"== 0, got {tuple(tris_op.shape)}")
+    _check_keys(keys, idx_bits, n // TILE_N, T // FINE_T, "tiles")
+    if tile_ah.shape[0] != n // TILE_N:
+        raise ValueError(f"tile_ah: expected ({n // TILE_N},), got "
+                         f"{tuple(tile_ah.shape)}")
+    if rays.device.type == "cpu":
+        return resident_sweep_plain(tris_op, rays)
+    t, idx, err = _resident_launch(_OP_BW if rows == 12 else _OP_MT, tris_op,
+                                   T, keys, idx_bits, rays, False, tile_ah,
+                                   visits)
+    resident_sweep_mixed.launches += 1
+    _raise_on(err, "resident_sweep_mixed")
+    return t, idx
+
+
+resident_sweep_mixed.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2-mxu: the resident sweep on the matmul-form operand
+# ---------------------------------------------------------------------------
+
+def _mxu_weights(tri_mxu):
+    """(16, 4T) operand (scene._build_tri_mxu) -> (4, 10, T): the
+    [det | u_num | v_num | t_num] weights of each live feature row,
+    column = triangle index."""
+    T = tri_mxu.shape[1] // 4
+    return tri_mxu[:10].reshape(10, T // FINE_T, 4, FINE_T).permute(
+        2, 0, 1, 3).reshape(4, 10, T)
+
+
+def _mxu_pair_test(w4, o, d, mint, maxt):
+    """Rays (n, 1) columns against (4, 10, C) weights: features [o, d,
+    o x d, 1], each numerator a 10-term sum in feature order, then the
+    epilogue of pallas_mt.py:414-422; returns (hit, t), (n, C).  Rounds
+    as the kernel's mxu_pair_test (no fused multiply-add)."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    f = (ox, oy, oz, dx, dy, dz, oy * dz - oz * dy, oz * dx - ox * dz,
+         ox * dy - oy * dx, torch.ones_like(ox))
+    s = []
+    for b in range(4):
+        acc = f[0] * w4[b, 0]
+        for k in range(1, 10):
+            acc = acc + f[k] * w4[b, k]
+        s.append(acc)
+    det, un, vn, tn = s
+    ok = torch.abs(det) > 1e-8
+    r = 1.0 / torch.where(ok, det, 1.0)
+    u, v, t = un * r, vn * r, tn * r
+    hit = (ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+           & (t >= mint) & (t <= maxt))
+    return hit, t
+
+
+def resident_sweep_mxu_plain(tri_mxu, rays, any_hit: bool = False):
+    """Dense sweep on the (16, 4T) matmul-form operand: the same sums
+    as the kernel's, in the same order, elementwise (not a matmul, whose
+    summation order is the library's)."""
+    del any_hit
+    w4 = _mxu_weights(tri_mxu)
+
+    def test(c0, c1, o, d, mint, maxt):
+        return _mxu_pair_test(w4[:, :, c0:c1], o, d, mint, maxt)
+
+    return _dense_closest(w4.shape[2], test, rays)
+
+
+def resident_sweep_mxu(tri_mxu, keys, idx_bits: int, rays,
+                       any_hit: bool = False, visits=None):
+    """K2-mxu wrapper: resident_sweep on the (16, 4T) matmul-form
+    operand `SceneData.tri_mxu` (10 live feature rows).
+
+    Kernel: csrc/resident_sweep.cu (op MXU), replacing pallas_mt.py
+    `_mt_resident_kernel` with `use_mxu=True`.  Each visit stages the
+    tile's 10 x 512 weights (20 KB) in shared memory; each thread forms
+    its ray's 10 features and takes det and the three numerators as
+    10-term fp32 sums (~90 flops per pair, on the FP32 units: TF32
+    tensor cores would lose the hit test's precision).
+    """
+    _check_rays(rays)
+    _check(tri_mxu, "tri_mxu", torch.float32, 2, rays.device)
+    _check(keys, "keys", torch.int32, 2, rays.device)
+    rows, cols = tri_mxu.shape
+    n = rays.shape[1]
+    if rows != 16 or cols % (4 * FINE_T) or cols == 0:
+        raise ValueError(f"tri_mxu: expected (16, 4T) with T % {FINE_T} "
+                         f"== 0, got {tuple(tri_mxu.shape)}")
+    T = cols // 4
+    _check_keys(keys, idx_bits, n // TILE_N, T // FINE_T, "tiles")
+    if rays.device.type == "cpu":
+        return resident_sweep_mxu_plain(tri_mxu, rays, any_hit)
+    t, idx, err = _resident_launch(_OP_MXU, tri_mxu, T, keys, idx_bits, rays,
+                                   any_hit, None, visits)
+    resident_sweep_mxu.launches += 1
+    _raise_on(err, "resident_sweep_mxu")
+    return t, idx
+
+
+resident_sweep_mxu.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -371,8 +559,37 @@ def stream_sweep_plain(tris_op, rays, any_hit: bool = False,
                                 rays, any_hit)
 
 
+def _check_stream(tris_op, keys, idx_bits: int, rays):
+    _check_rays(rays)
+    _check(tris_op, "tris_op", torch.float32, 2, rays.device)
+    _check(keys, "keys", torch.int32, 2, rays.device)
+    rows, T = tris_op.shape
+    if rows != 16 or T % STREAM_T or T == 0:
+        raise ValueError(f"tris_op: expected (16, T) with T % {STREAM_T} "
+                         f"== 0, got {tuple(tris_op.shape)}")
+    _check_keys(keys, idx_bits, rays.shape[1] // TILE_N, T // STREAM_T,
+                "slabs")
+
+
+def _stream_launch(tris_op, keys, idx_bits: int, rays, any_hit: bool,
+                   use_bw: bool, n_sub: int, sub_boxes, visits):
+    if tris_op.data_ptr() % 16:
+        raise ValueError("tris_op: the slab copies need 16-byte alignment")
+    n = rays.shape[1]
+    t = torch.empty((n,), dtype=torch.float32, device=rays.device)
+    idx = torch.empty((n,), dtype=torch.int32, device=rays.device)
+    lib = cuda_build.load()
+    err = lib.stream_sweep_launch(
+        tris_op.data_ptr(), int(use_bw), tris_op.shape[1], keys.data_ptr(),
+        keys.shape[1], idx_bits, rays.data_ptr(), n, t.data_ptr(),
+        idx.data_ptr(), int(any_hit), n_sub,
+        0 if sub_boxes is None else sub_boxes.data_ptr(),
+        _visits_ptr(visits, n // TILE_N, rays.device), _stream(rays.device))
+    return t, idx, err
+
+
 def stream_sweep(tris_op, keys, idx_bits: int, rays, any_hit: bool = False,
-                 use_bw: bool = True):
+                 use_bw: bool = True, visits=None):
     """K5 wrapper: (t (N,) f32, idx (N,) int32) for (8, N) rays against
     the (16, T) streamed operand, walking `keys` from
     ray_tile_entry_keys on the (T / STREAM_T, 8) slab bounds.  use_bw
@@ -386,34 +603,164 @@ def stream_sweep(tris_op, keys, idx_bits: int, rays, any_hit: bool = False,
     next slab overlapping the test of this one.  The plain version (CPU
     tensors) sweeps densely and does not read the keys.
     """
-    _check_rays(rays)
-    _check(tris_op, "tris_op", torch.float32, 2, rays.device)
-    _check(keys, "keys", torch.int32, 2, rays.device)
-    rows, T = tris_op.shape
-    n = rays.shape[1]
-    if rows != 16 or T % STREAM_T or T == 0:
-        raise ValueError(f"tris_op: expected (16, T) with T % {STREAM_T} "
-                         f"== 0, got {tuple(tris_op.shape)}")
-    n_tt = T // STREAM_T
-    if tuple(keys.shape) != (n // TILE_N, n_tt):
-        raise ValueError(f"keys: expected ({n // TILE_N}, {n_tt}), got "
-                         f"{tuple(keys.shape)}")
-    if not 1 <= idx_bits <= 22 or (1 << idx_bits) < n_tt:
-        raise ValueError(f"idx_bits {idx_bits} cannot index {n_tt} slabs")
+    _check_stream(tris_op, keys, idx_bits, rays)
     if rays.device.type == "cpu":
         return stream_sweep_plain(tris_op, rays, any_hit, use_bw)
-    if tris_op.data_ptr() % 16:
-        raise ValueError("tris_op: the slab copies need 16-byte alignment")
-    t = torch.empty((n,), dtype=torch.float32, device=rays.device)
-    idx = torch.empty((n,), dtype=torch.int32, device=rays.device)
-    lib = cuda_build.load()
-    err = lib.stream_sweep_launch(
-        tris_op.data_ptr(), int(use_bw), T, keys.data_ptr(), n_tt,
-        idx_bits, rays.data_ptr(), n, t.data_ptr(), idx.data_ptr(),
-        int(any_hit), _stream(rays.device))
+    t, idx, err = _stream_launch(tris_op, keys, idx_bits, rays, any_hit,
+                                 use_bw, 1, None, visits)
     stream_sweep.launches += 1
     _raise_on(err, "stream_sweep")
     return t, idx
 
 
 stream_sweep.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5-cull: the streamed sweep with sub-slab culling
+# ---------------------------------------------------------------------------
+
+def cull_sub_blocks(cull_t: int) -> int:
+    """Sub-blocks per slab for a culling granularity (pallas_mt.py:766-
+    768): STREAM_T // cull_t for a divisor smaller than STREAM_T, else
+    1 (no culling)."""
+    if cull_t and STREAM_T % cull_t == 0 and STREAM_T > cull_t:
+        return STREAM_T // cull_t
+    return 1
+
+
+def sub_block_boxes(tris_op, cull_t: int):
+    """(T / cull_t, 8) boxes [lo xyz | hi xyz | 0 0] of each cull_t
+    triangles of the Moller-Trumbore rows [v0 | e1 | e2], computed per
+    sweep as pallas_mt.py:770-780 does."""
+    v0 = tris_op[0:3]
+    p1 = v0 + tris_op[3:6]
+    p2 = v0 + tris_op[6:9]
+    nq = tris_op.shape[1] // cull_t
+    lo = torch.minimum(v0, torch.minimum(p1, p2)).reshape(3, nq, cull_t)
+    hi = torch.maximum(v0, torch.maximum(p1, p2)).reshape(3, nq, cull_t)
+    return torch.cat([torch.amin(lo, dim=-1).T, torch.amax(hi, dim=-1).T,
+                      torch.zeros((nq, 2), dtype=tris_op.dtype,
+                                  device=tris_op.device)], dim=1).contiguous()
+
+
+def stream_sweep_culled(tris_op, keys, idx_bits: int, rays,
+                        any_hit: bool = False, cull_t: int = 128,
+                        visits=None):
+    """K5-cull wrapper: stream_sweep on the 16-row Moller-Trumbore
+    operand, each slab tested in sub-blocks of cull_t triangles (a
+    divisor of STREAM_T smaller than it) gated by their boxes.
+
+    Kernel: csrc/stream_sweep.cu with n_sub = STREAM_T / cull_t,
+    replacing pallas_mt.py `_mt_stream_kernel` with `n_sub > 1`.  A
+    landed slab's sub-block is tested only if a ray still searching
+    enters its box before its useful t (one slab test per thread and a
+    __syncthreads_or); `visits` then counts sub-blocks.  Culling is
+    exact, so the plain version is the dense sweep.
+    """
+    _check_stream(tris_op, keys, idx_bits, rays)
+    n_sub = cull_sub_blocks(cull_t)
+    if n_sub == 1:
+        raise ValueError(f"cull_t {cull_t}: expected a divisor of "
+                         f"{STREAM_T} smaller than it")
+    if rays.device.type == "cpu":
+        return stream_sweep_plain(tris_op, rays, any_hit, use_bw=False)
+    t, idx, err = _stream_launch(tris_op, keys, idx_bits, rays, any_hit,
+                                 False, n_sub,
+                                 sub_block_boxes(tris_op, cull_t), visits)
+    stream_sweep_culled.launches += 1
+    _raise_on(err, "stream_sweep_culled")
+    return t, idx
+
+
+stream_sweep_culled.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: the 2-D culled sweep with barycentrics
+# ---------------------------------------------------------------------------
+
+def coarse_bounds(tile_bounds, n_tt: int):
+    """FINE_T tile boxes grouped into n_tt TILE_T tiles (pallas_mt.py:
+    1486-1491)."""
+    if tile_bounds.shape[0] == n_tt:
+        return tile_bounds
+    tb = tile_bounds.reshape(n_tt, tile_bounds.shape[0] // n_tt, 8)
+    return torch.cat([torch.amin(tb[:, :, 0:3], dim=1),
+                      torch.amax(tb[:, :, 3:6], dim=1),
+                      torch.zeros((n_tt, 2), dtype=tb.dtype,
+                                  device=tb.device)], dim=1).contiguous()
+
+
+def mt_sweep_plain(tris_packed, rays, any_hit: bool = False):
+    """Dense Moller-Trumbore sweep with barycentrics: (t, idx, u, v),
+    each (N,), the winner's raw u and v; idx -1, t +inf, u = v = 0 on a
+    miss, the lowest index winning ties in t.  For any-hit only idx >= 0
+    is meaningful."""
+    del any_hit
+
+    def test(c0, c1, o, d, mint, maxt):
+        return _pair_test_uv(tris_packed[:, c0:c1], o, d, mint, maxt)
+
+    return _dense_closest(tris_packed.shape[1], test, rays, n_extra=2)
+
+
+def mt_sweep(tris_packed, tile_bounds, scene_bounds, rays,
+             any_hit: bool = False, cull: bool = True, visits=None):
+    """K6 wrapper: (t, idx, u, v), each (N,), for (8, N) rays against
+    the (9, T) soup, T a multiple of TILE_T.  tile_bounds are the
+    (T / FINE_T, 8) tile boxes (coarsened here to TILE_T tiles),
+    scene_bounds (1, 8) [centre | half diagonal | ...].
+
+    Kernel: csrc/mt_sweep.cu, replacing pallas_mt.py `_mt_kernel`
+    (`mt_sweep`).  The visit order of each ray tile is its tiles sorted
+    by entry bound (K1 on the coarsened bounds, then a stable argsort).
+    One block per ray tile walks all tiles in that order, culls a tile
+    by the ray tile's reach and the skyline, and stages a passing
+    tile's 9 x 512 soup (18 KB) in shared memory.  Within a tile ties
+    keep the lowest index, across tiles the earlier visit (the TPU
+    kernel's fold), so idx can differ from the dense plain version only
+    at exact ties in t.
+    """
+    _check_rays(rays)
+    _check(tris_packed, "tris_packed", torch.float32, 2, rays.device)
+    _check(tile_bounds, "tile_bounds", torch.float32, 2, rays.device)
+    _check(scene_bounds, "scene_bounds", torch.float32, 2, rays.device)
+    rows, T = tris_packed.shape
+    n = rays.shape[1]
+    if rows != 9 or T % TILE_T or T == 0:
+        raise ValueError(f"tris_packed: expected (9, T) with T % {TILE_T} "
+                         f"== 0, got {tuple(tris_packed.shape)}")
+    n_tt = T // TILE_T
+    if tile_bounds.shape[0] % n_tt or tile_bounds.shape[1] != 8:
+        raise ValueError(f"tile_bounds: expected (k * {n_tt}, 8), got "
+                         f"{tuple(tile_bounds.shape)}")
+    if rays.device.type == "cpu":
+        return mt_sweep_plain(tris_packed, rays, any_hit)
+    n_rt = n // TILE_N
+    tb = coarse_bounds(tile_bounds, n_tt)
+    if cull and n_tt > 1:
+        entry = entry_min(tb, rays)
+        order = torch.argsort(entry, dim=1, stable=True).to(torch.int32)
+    else:
+        entry = torch.zeros((n_rt, n_tt), dtype=torch.float32,
+                            device=rays.device)
+        order = torch.arange(n_tt, dtype=torch.int32,
+                             device=rays.device).expand(n_rt, n_tt)
+    order = order.contiguous()
+    outs = (torch.empty((n,), dtype=torch.float32, device=rays.device),
+            torch.empty((n,), dtype=torch.int32, device=rays.device),
+            torch.empty((n,), dtype=torch.float32, device=rays.device),
+            torch.empty((n,), dtype=torch.float32, device=rays.device))
+    lib = cuda_build.load()
+    err = lib.mt_sweep_launch(
+        tris_packed.data_ptr(), T, order.data_ptr(), entry.data_ptr(),
+        tb.data_ptr(), scene_bounds.data_ptr(), n_tt, rays.data_ptr(), n,
+        *(o.data_ptr() for o in outs), int(any_hit), int(cull),
+        _visits_ptr(visits, n_rt, rays.device), _stream(rays.device))
+    mt_sweep.launches += 1
+    _raise_on(err, "mt_sweep")
+    return outs
+
+
+mt_sweep.launches = 0

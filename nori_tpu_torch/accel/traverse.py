@@ -2,11 +2,16 @@
 
 Port of the sweep path of `nori_tpu/accel/traverse.py`: `intersect`
 (closest hit) and `occluded` (any hit) pack the rays, build the
-per-ray-tile candidate keys (K1) and run the resident sweep (K2) or,
-for streamed-scale scenes (16-row operands, STREAM_T-triangle slab
-bounds, as `Scene.compile_arrays` lays them out), the streamed sweep
-(K5).  A streamed scene's shadow query first sorts its rays by their
-own candidate slabs (K3).  Triangle test semantics match
+per-ray-tile candidate keys (K1) and run the resident sweep (K2, or
+K2-mxu on the matmul-form operand with config.USE_MXU_SWEEP) or, for
+streamed-scale scenes (16-row operands, STREAM_T-triangle slab bounds,
+as `Scene.compile_arrays` lays them out), the streamed sweep (K5, or
+K5-cull with config.STREAM_CULL_T on the Moller-Trumbore operand).  A
+streamed scene's shadow query first sorts its rays by their own
+candidate slabs (K3).  `intersect_mixed` runs both queries in one
+mixed launch (K4) for the wavefront's merged step.  The switches in
+`nori_tpu_torch.config` are read at every query.  Triangle test
+semantics match
 Mesh::rayIntersect (src/mesh.cpp:51-88): |det| > 1e-8, u in [0,1],
 v >= 0, u+v <= 1, t in [mint, maxt].
 """
@@ -17,14 +22,12 @@ from typing import NamedTuple
 
 import torch
 
+from nori_tpu_torch import config
 from nori_tpu_torch.accel.sweep import (
-    lane_keys, pack_rays, ray_tile_entry_keys, resident_sweep, stream_sweep)
+    TILE_N, cull_sub_blocks, lane_keys, pack_rays, ray_tile_entry_keys,
+    resident_sweep, resident_sweep_mixed, resident_sweep_mxu, stream_sweep,
+    stream_sweep_culled)
 from nori_tpu_torch.core.vecmath import cross
-
-#: sweep the Baldwin-Weber rows (the JAX package's default,
-#: config.USE_BW_SWEEP); False sweeps the Moller-Trumbore soup, whose
-#: rounding matches the JAX package's CPU scan path
-USE_BW = True
 
 class Hit(NamedTuple):
     valid: torch.Tensor  # (N,) bool
@@ -41,12 +44,25 @@ def streamed(sd) -> bool:
 
 
 def _sweep(sd, rays, any_hit: bool):
+    """(t, idx) dispatch as traverse.py:249-305 (`_sweep_any`), less the
+    TPU's memory budgets: the operand lives in device memory.  The
+    Baldwin-Weber rows when config.USE_BW_SWEEP, else the
+    Moller-Trumbore soup, whose rounding matches the JAX package's CPU
+    scan path."""
     keys, idx_bits = ray_tile_entry_keys(sd.tri_tile_bounds, rays)
-    op = sd.tri_bw if USE_BW else sd.tri_packed
+    use_bw = config.USE_BW_SWEEP
     if streamed(sd):
-        return stream_sweep(op, keys, idx_bits, rays, any_hit=any_hit,
-                            use_bw=USE_BW)
-    return resident_sweep(op, keys, idx_bits, rays, any_hit=any_hit)
+        cull_t = config.STREAM_CULL_T
+        if not use_bw and cull_sub_blocks(cull_t) > 1:
+            return stream_sweep_culled(sd.tri_packed, keys, idx_bits, rays,
+                                       any_hit=any_hit, cull_t=cull_t)
+        return stream_sweep(sd.tri_bw if use_bw else sd.tri_packed, keys,
+                            idx_bits, rays, any_hit=any_hit, use_bw=use_bw)
+    if config.USE_MXU_SWEEP:
+        return resident_sweep_mxu(sd.tri_mxu, keys, idx_bits, rays,
+                                  any_hit=any_hit)
+    return resident_sweep(sd.tri_bw if use_bw else sd.tri_packed, keys,
+                          idx_bits, rays, any_hit=any_hit)
 
 
 def sweep_hit_epilogue(sd, rays, t, idx, n) -> Hit:
@@ -79,6 +95,42 @@ def intersect(sd, o, d, mint, maxt) -> Hit:
     rays, n = pack_rays(o, d, mint, maxt)
     t, idx = _sweep(sd, rays, False)
     return sweep_hit_epilogue(sd, rays, t, idx, n)
+
+
+def intersect_mixed(sd, oc, dc, mintc, maxtc, os_, ds_, mints, maxts,
+                    raw: bool = False):
+    """Closest hit for (oc, dc, mintc, maxtc) and any hit for (os_,
+    ds_, mints, maxts) in one mixed sweep (K4), as traverse.py:308-368.
+
+    Both sets are packed and concatenated; K1 and the key sort run once
+    on all rays, and the ray tiles of the shadow set carry the any-hit
+    flag.  Returns (Hit of the closest set, occluded bool of the shadow
+    set); with raw=True, (t, idx, occ) with t and idx padded to the
+    closest set's packed width and no barycentric epilogue (the merged
+    wavefront step carries them to the next step).  config.USE_MXU_SWEEP
+    is ignored, as the JAX package ignores it here.  A streamed scene
+    takes the two separate queries."""
+    if streamed(sd):
+        hit = intersect(sd, oc, dc, mintc, maxtc)
+        occ = occluded(sd, os_, ds_, mints, maxts)
+        if raw:
+            return (torch.where(hit.valid, hit.t, float("inf")),
+                    torch.where(hit.valid, hit.tri, -1), occ)
+        return hit, occ
+    rays_c, n_c = pack_rays(oc, dc, mintc, maxtc)
+    rays_s, n_s = pack_rays(os_, ds_, mints, maxts)
+    rays = torch.cat([rays_c, rays_s], dim=1)
+    n_rt_c = rays_c.shape[1] // TILE_N
+    tile_ah = (torch.arange(rays.shape[1] // TILE_N, device=rays.device)
+               >= n_rt_c).to(torch.int32)
+    keys, idx_bits = ray_tile_entry_keys(sd.tri_tile_bounds, rays)
+    op = sd.tri_bw if config.USE_BW_SWEEP else sd.tri_packed
+    t, idx = resident_sweep_mixed(op, keys, idx_bits, rays, tile_ah)
+    nc = rays_c.shape[1]
+    occ = (idx[nc:] >= 0)[:n_s]
+    if raw:
+        return t[:nc], idx[:nc], occ
+    return sweep_hit_epilogue(sd, rays_c, t[:nc], idx[:nc], n_c), occ
 
 
 def shadow_order(sd, rays) -> torch.Tensor:

@@ -1,0 +1,32 @@
+"""Sweep configuration of the port.
+
+The JAX package's sweep switches (`nori_tpu/config.py`), read when a
+query runs, not when a module is imported, so a caller (or a test) can
+set them between renders:
+
+  USE_BW_SWEEP   sweep the Baldwin-Weber operand (`tri_bw`); False
+                 sweeps the Moller-Trumbore soup (`tri_packed`).
+  USE_MXU_SWEEP  resident scenes sweep the matmul-form operand
+                 (`tri_mxu`, kernel K2-mxu).  The merged step's mixed
+                 sweep ignores it, as the JAX package's does.
+  STREAM_CULL_T  streamed scenes test each slab in sub-blocks of this
+                 many triangles, each gated by its bounding box (kernel
+                 K5-cull); 0 disables.  Taken only with the
+                 Moller-Trumbore operand (USE_BW_SWEEP False), whose
+                 rows give the sub-block boxes, and only for a divisor
+                 of STREAM_T smaller than it.
+  MERGED_SWEEP   the wavefront's merged step: one mixed launch (kernel
+                 K4) traces the next bounce's closest hits and this
+                 step's shadow rays; NEE modes on resident scenes only.
+
+The defaults are the JAX package's, less its auto heuristics
+(`auto_merged_sweep`, visit widths, key caps), which are TPU
+measurements: MERGED_SWEEP is False, which changes no sample value.
+"""
+
+from __future__ import annotations
+
+USE_BW_SWEEP: bool = True
+USE_MXU_SWEEP: bool = False
+STREAM_CULL_T: int = 0
+MERGED_SWEEP: bool = False

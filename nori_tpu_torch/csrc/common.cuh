@@ -62,12 +62,14 @@ __device__ __forceinline__ int t_cap_bits(bool live, float bt, float maxt) {
 
 // One ray against staged triangle c of a tile whose operand rows are
 // STRIDE floats apart; the expressions round exactly as the plain
-// versions in accel/sweep.py (left-to-right sums, no FMA).
+// versions in accel/sweep.py (left-to-right sums, no FMA).  u_out and
+// v_out, when given, receive the raw barycentrics.
 template <bool BW, int STRIDE>
 __device__ __forceinline__ void pair_test(
         const float* tri, int c, float ox, float oy, float oz,
         float dx, float dy, float dz, float mint, float maxt,
-        bool* hit, float* t_out) {
+        bool* hit, float* t_out, float* u_out = nullptr,
+        float* v_out = nullptr) {
     auto R = [&](int i) { return tri[i * STRIDE + c]; };  // operand row i
     bool ok;
     float t, u, v;
@@ -98,6 +100,33 @@ __device__ __forceinline__ void pair_test(
         v = (dx * qx + dy * qy + dz * qz) * inv_det;
         t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
     }
+    *hit = ok && (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) &&
+           (u + v <= 1.0f) && (t >= mint) && (t <= maxt);
+    *t_out = t;
+    if (u_out != nullptr) *u_out = u;
+    if (v_out != nullptr) *v_out = v;
+}
+
+// The matmul-form pair test (K2-mxu): one ray's features f = [o, d,
+// o x d, 1] against staged triangle c of a tile's (10, 4 x FINE_T)
+// weight block, whose columns are [det | u_num | v_num | t_num] blocks
+// of FINE_T.  Each numerator is a 10-term sum in feature order, as the
+// plain version (sweep._mxu_pair_test) takes it.
+__device__ __forceinline__ void mxu_pair_test(
+        const float* w, int c, const float* f, float mint, float maxt,
+        bool* hit, float* t_out) {
+    float s[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+        const float* col = w + b * FINE_T + c;
+        float acc = f[0] * col[0];
+#pragma unroll
+        for (int k = 1; k < 10; ++k) acc = acc + f[k] * col[k * 4 * FINE_T];
+        s[b] = acc;
+    }
+    const bool ok = fabsf(s[0]) > 1e-8f;
+    const float rcp = 1.0f / (ok ? s[0] : 1.0f);
+    const float u = s[1] * rcp, v = s[2] * rcp, t = s[3] * rcp;
     *hit = ok && (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) &&
            (u + v <= 1.0f) && (t >= mint) && (t <= maxt);
     *t_out = t;

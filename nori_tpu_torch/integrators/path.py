@@ -38,7 +38,8 @@ MATS, EMS, MIS = 0, 1, 2
 
 
 def path_vertex(sd, mode: int, o, d, mint, maxt, live, depth, beta, L,
-                spec, prev_pdf, seed, q):
+                spec, prev_pdf, seed, q, hit=None,
+                defer_shadow: bool = False):
     """One vertex of the path estimator over a batch of lanes
     (path.py:60-182): closest hit, emitter hit weighted for `mode`,
     next-event estimation, Russian roulette and BSDF sampling.
@@ -47,9 +48,17 @@ def path_vertex(sd, mode: int, o, d, mint, maxt, live, depth, beta, L,
     keys the RNG streams 8 * depth + k of sample ids q and starts the
     roulette at RR_START; spec (the previous bounce was discrete, or
     this is a primary ray) and prev_pdf describe the previous bounce.
-    Returns (its, frame, BSDF sample, L, beta, alive, shadow rays)."""
+    hit, when given, is the closest hit of these rays, traced earlier
+    (the merged wavefront step carries it); else the vertex traces it.
+    Returns (its, frame, BSDF sample, L, beta, alive, shadow rays,
+    deferred).  With defer_shadow (NEE modes) the NEE visibility is left
+    to the caller: L leaves out the NEE term and deferred is (pending
+    contribution (N, 3), shadow-ray args (o, d, mint, maxt)), the
+    contribution to add where the shadow ray is unoccluded; otherwise
+    deferred is None."""
     n, dev = o.shape[0], o.device
-    hit = intersect(sd, o, d, mint, maxt)
+    if hit is None:
+        hit = intersect(sd, o, d, mint, maxt)
     its = fill_interaction_fast(sd, hit, o, d)
     live_hit = live & its.valid
     params, mesh_le = mesh_params(sd, its)
@@ -77,6 +86,7 @@ def path_vertex(sd, mode: int, o, d, mint, maxt, live, depth, beta, L,
     wi_local = to_local(frame, its.wi_world)
     du = depth.to(torch.int64) * 8
     n_shadow = 0
+    deferred = None
 
     # ---- next-event estimation --------------------------------------
     if mode in (EMS, MIS):
@@ -108,8 +118,12 @@ def path_vertex(sd, mode: int, o, d, mint, maxt, live, depth, beta, L,
             * (wo_local[..., 2] / torch.clamp_min(p_light_sa, 1e-20)
                * w_l)[:, None]
         )
-        vis = ~occluded(sd, its.p, wo_w, smint, smaxt)
-        L = L + torch.where((ok & vis)[:, None], contrib, 0.0)
+        if defer_shadow:
+            deferred = (torch.where(ok[:, None], contrib, 0.0),
+                        (its.p, wo_w, smint, smaxt))
+        else:
+            vis = ~occluded(sd, its.p, wo_w, smint, smaxt)
+            L = L + torch.where((ok & vis)[:, None], contrib, 0.0)
 
     # ---- Russian roulette + BSDF sampling ---------------------------
     u_rr = lane_uniform(seed, q, du + 5)
@@ -123,7 +137,7 @@ def path_vertex(sd, mode: int, o, d, mint, maxt, live, depth, beta, L,
     s = sample_bsdf(params, wi_local, u_lobe, u_dir)
     beta = beta * s.weight
     alive = alive & (torch.amax(s.weight, dim=-1) > 0.0)
-    return its, frame, s, L, beta, alive, n_shadow
+    return its, frame, s, L, beta, alive, n_shadow, deferred
 
 
 def make_path_li(mode: int, max_depth: int = MAX_DEPTH):
@@ -143,7 +157,7 @@ def make_path_li(mode: int, max_depth: int = MAX_DEPTH):
             if not bool(alive.any()):
                 break
             rays = rays + alive.sum()
-            its, frame, s, L, beta, alive, n_shadow = path_vertex(
+            its, frame, s, L, beta, alive, n_shadow, _ = path_vertex(
                 sd, mode, o, d, mint, maxt, alive,
                 torch.full((n,), depth, dtype=torch.int32, device=dev),
                 beta, L, spec, prev_pdf, seed, lanes)

@@ -22,7 +22,8 @@ def main(argv=None):
     ap.add_argument("-o", "--output", default=None, help="output basename")
     ap.add_argument("-q", "--quiet", action="store_true")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda if available)")
+                    help="torch device (default: cuda; without a CUDA "
+                         "device the render raises unless this is cpu)")
     args = ap.parse_args(argv)
 
     if os.path.splitext(args.input)[1].lower() != ".xml":

@@ -25,6 +25,18 @@ JITTER_STREAM = 0xF000
 DEFAULT_BATCH = 131072
 
 
+def resolve_device(device) -> torch.device:
+    """The device a render runs on: `device`, by default the first CUDA
+    device.  Raises RuntimeError when that is a CUDA device and none is
+    available: a render goes to the CPU only when asked to."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device available for {dev}: pass device='cpu' to "
+            "render on the CPU")
+    return dev
+
+
 def camera_rays(scene, cam_params, pix, lanes, seed):
     """Jittered camera rays through pixels `pix`, the jitter keyed by
     the lanes' sample ids; returns (positions, o, d, mint, maxt)."""
@@ -95,12 +107,11 @@ def make_sample_pass_q(scene, batch: int, device="cpu"):
 def render(scene, spp: int | None = None, seed: int = 0,
            verbose: bool = False, batch: int | None = None, device=None):
     """Render a scene with the batch driver on `device` (default: the
-    first CUDA device if there is one); returns (image (H, W, 3) numpy,
+    first CUDA device; resolve_device); returns (image (H, W, 3) numpy,
     stats dict)."""
     from nori_tpu_torch.wavefront import make_dense_splat
 
-    device = torch.device(
-        device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = resolve_device(device)
     sd = scene.compile(device)
     w, h = scene.camera.output_size
     if spp is None:

@@ -37,6 +37,40 @@ TRI_PAD = 512  # triangle padding granularity (the JAX package's)
 STREAMED_BYTES = 8 * 1024 * 1024
 
 
+def _build_tri_mxu(v0, e1, e2, n_tris):
+    """(16, 4*T) Moller-Trumbore weight matrix for the matmul-form sweep
+    (K2-mxu): 10 live feature rows, padded to 16 as the JAX package
+    lays them out.
+
+    Ray features F = [o(3), d(3), (o x d)(3), 1]; per triangle the four
+    output columns reconstruct (equivalently to src/mesh.cpp:51-88):
+      det   = -d.n                      (n = e1 x e2, unnormalized)
+      u_num = (o x d).e2 + d.(v0 x e2)  (= (o-v0).(d x e2))
+      v_num = -(o x d).e1 - d.(v0 x e1) (= d.((o-v0) x e1))
+      t_num = o.n - v0.n                (= e2.((o-v0) x e1))
+    so that u = u_num/det, v = v_num/det, t = t_num/det.  Columns are
+    grouped per FINE_T tile as [det | u | v | t] blocks.  Padded
+    triangles get all-zero columns (det == 0 -> never hit).
+    """
+    T = v0.shape[0]
+    n = np.cross(e1, e2)
+    w = np.zeros((T, 4, 16), dtype=np.float32)
+    w[:, 0, 3:6] = -n
+    w[:, 1, 3:6] = np.cross(v0, e2)
+    w[:, 1, 6:9] = e2
+    w[:, 2, 3:6] = -np.cross(v0, e1)
+    w[:, 2, 6:9] = -e1
+    w[:, 3, 0:3] = n
+    w[:, 3, 9] = -np.einsum("ij,ij->i", v0, n)
+    w[n_tris:] = 0.0
+    # (T, 4, 16) -> tiles (T/F, F, 4, 16) -> (T/F, 4, F, 16) ->
+    # rows 16, cols tile-major [det block | u | v | t]
+    nt = T // FINE_T
+    wt = w.reshape(nt, FINE_T, 4, 16).transpose(0, 2, 1, 3)
+    return np.ascontiguousarray(
+        wt.reshape(nt * 4 * FINE_T, 16).T).astype(np.float32)
+
+
 def _build_tri_bw(v0, e1, e2, n_tris):
     """(12, T) Baldwin-Weber transform rows for the resident sweep:
     [n(3) | d_plane | U(3) | u_w | V(3) | v_w] per triangle, so the
@@ -66,14 +100,11 @@ def _build_tri_bw(v0, e1, e2, n_tris):
     return out
 
 
-
-
 @dataclasses.dataclass
 class SceneData:
     """Flat render-ready scene: tensors on one device.
 
-    Field for field the JAX package's SceneData, less `tri_mxu` (the
-    MXU operand, which nothing in the port reads) and `bsdf` (the
+    Field for field the JAX package's SceneData, less `bsdf` (the
     per-mesh BSDF table, which `mesh_attr` carries packed).
     """
 
@@ -96,6 +127,8 @@ class SceneData:
     # [type-bits(1), albedo(3), alpha, int_ior, ext_ior, ks, Le(3), pad]
     mesh_attr: torch.Tensor  # (M, 12)
     tri_packed: torch.Tensor  # (9, T) [v0|e1|e2] Moller-Trumbore operand
+    # (16, 4T) matmul-form operand (K2-mxu); (16, 4) zeros when streamed
+    tri_mxu: torch.Tensor
     tri_bw: torch.Tensor    # (12, T) Baldwin-Weber operand
     tri_tile_bounds: torch.Tensor  # (T/FINE_T, 8) per-tile AABBs
     scene_bounds: torch.Tensor  # (1, 8) [center xyz, half-diag, ...]
@@ -122,7 +155,7 @@ class SceneData:
 def scene_data_from_numpy(arrays: dict, device) -> SceneData:
     """SceneData on `device` from numpy arrays keyed by field name.
 
-    Keys the port does not carry (`tri_mxu`, `bsdf`) are ignored, so
+    Keys the port does not carry (`bsdf`) are ignored, so
     the dict read out of the JAX package's SceneData can be passed
     as it is."""
     return SceneData(**{
@@ -375,6 +408,10 @@ class Scene(NoriObject):
                 [v0.T, e1.T, e2.T]
                 + ([np.zeros((7, t_padded), np.float32)] if streamed
                    else []), axis=0),
+            # streamed-scale soups never take the matmul form: (16, 4)
+            # zeros in place of ~140 MB at ajax scale, as in nori_tpu
+            tri_mxu=(_build_tri_mxu(v0, e1, e2, n_tris) if not streamed
+                     else np.zeros((16, 4), np.float32)),
             tri_bw=(bw_rows if not streamed else np.concatenate(
                 [bw_rows, np.zeros((4, t_padded), np.float32)], axis=0)),
             tri_tile_bounds=tile_bounds,

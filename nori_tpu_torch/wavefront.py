@@ -14,6 +14,14 @@ lanes' (q, L) records go densely into a per-chunk record log at a
 running cursor; after the chunk drains, one sort by q restores sample
 order for the dense film splat.
 
+The merged step (config.MERGED_SWEEP; NEE modes on resident scenes)
+traces, after the sort, the next bounce's closest hits and this step's
+shadow rays in one mixed sweep (traverse.intersect_mixed, kernel K4),
+applies the pending NEE contribution to the permuted lanes and record
+rows, and carries the hits into the next step.  The first step of a
+chunk primes them with one closest sweep.  Sample values are the
+two-launch step's, bit for bit.
+
 Determinism: lanes key the counter-based RNG by global sample id q, so
 a sample's value does not depend on lane order or pool width.
 
@@ -31,12 +39,15 @@ import time
 
 import torch
 
+from nori_tpu_torch import config
 from nori_tpu_torch.accel.sweep import lane_keys, pack_rays
+from nori_tpu_torch.accel.traverse import (
+    intersect, intersect_mixed, sweep_hit_epilogue)
 from nori_tpu_torch.bsdf import E_DISCRETE
 from nori_tpu_torch.core import rng
 from nori_tpu_torch.core.vecmath import EPSILON, to_world
-from nori_tpu_torch.integrators.path import MIS, path_vertex
-from nori_tpu_torch.render import JITTER_STREAM
+from nori_tpu_torch.integrators.path import EMS, MIS, path_vertex
+from nori_tpu_torch.render import JITTER_STREAM, resolve_device
 
 MAX_DEPTH = 48
 #: the host reads the pool's occupancy every this many steps, one
@@ -132,22 +143,38 @@ def _coarsen_bounds(kb, c: int):
     return torch.cat(parts, dim=0).contiguous()
 
 
+def merged_step(scene, mode: int, merged: bool | None = None) -> bool:
+    """Does the wavefront take the merged step?  merged (None reads
+    config.MERGED_SWEEP), for NEE modes on resident-layout scenes only
+    (wavefront.py:196-199)."""
+    if merged is None:
+        merged = config.MERGED_SWEEP
+    return bool(merged) and mode in (EMS, MIS) and \
+        scene.compile_arrays()["tri_packed"].shape[0] != 16
+
+
 def make_wavefront_stepper(scene, mode: int, n_lanes: int, chunk: int,
                            max_depth: int = MAX_DEPTH,
                            sort_rays: bool | None = None,
-                           device="cpu"):
+                           device="cpu", merged: bool | None = None):
     """Build (init, step, n_active, finalize) for one pool width.
 
     carry = (state dict, next_q, records (chunk + N, 4), w_cursor,
     rays, q_hi), the scalars 0-d int64 tensors on `device`; work items
     q in [q0, q_hi).  records rows are [q-bits, L.rgb]; rows past the
-    cursor are garbage that later windows overwrite.
+    cursor are garbage that later windows overwrite.  merged: take the
+    merged step (see merged_step); one render decides it once for
+    every stage of its shrink cascade, since a shrunk carry inherits
+    the wide stage's state.  The merged state also carries the next
+    rays' hits (hit_t, hit_tri) and `primed`, a host-side bool: whether
+    they were traced yet.
     """
     cam = scene.camera
     w, h = cam.output_size
     spp = scene.sampler.sample_count
     cam_params = cam.ray_params(device)
     N = n_lanes
+    merged = merged_step(scene, mode, merged)
     arrays = scene.compile_arrays()
     n_tt = int(arrays["tri_tile_bounds"].shape[0])
     kc = key_coarsen(arrays["tri_packed"].shape[0], n_tt)
@@ -181,6 +208,12 @@ def make_wavefront_stepper(scene, mode: int, n_lanes: int, chunk: int,
             spec=torch.ones((N,), dtype=torch.bool, device=device),
             prev_pdf=torch.zeros((N,), dtype=torch.float32, device=device),
         )
+        if merged:
+            state["hit_t"] = torch.full((N,), float("inf"),
+                                        dtype=torch.float32, device=device)
+            state["hit_tri"] = torch.full((N,), -1, dtype=torch.int32,
+                                          device=device)
+            state["primed"] = False
         # q column = sentinel bits (int32 -1 == uint32 0xFFFFFFFF)
         records = torch.zeros((chunk + N, 4), dtype=torch.int32,
                               device=device)
@@ -199,9 +232,21 @@ def make_wavefront_stepper(scene, mode: int, n_lanes: int, chunk: int,
         spec, prev_pdf = st["spec"], st["prev_pdf"]
 
         rays = rays + active.sum()
-        its, frame, s, L, beta, alive, n_shadow = path_vertex(
+        hit = None
+        if merged:
+            # the previous step's mixed sweep traced these rays; the
+            # first step of a chunk primes with one closest sweep
+            if st["primed"]:
+                hit_t, hit_tri = st["hit_t"], st["hit_tri"]
+            else:
+                h = intersect(sd, o, d, mint, maxt)
+                hit_t = torch.where(h.valid, h.t, float("inf"))
+                hit_tri = torch.where(h.valid, h.tri, -1)
+            rp_cur, _ = pack_rays(o, d, mint, maxt)
+            hit = sweep_hit_epilogue(sd, rp_cur, hit_t, hit_tri, N)
+        its, frame, s, L, beta, alive, n_shadow, deferred = path_vertex(
             sd, mode, o, d, mint, maxt, active, depth, beta, L, spec,
-            prev_pdf, seed, q)
+            prev_pdf, seed, q, hit=hit, defer_shadow=merged)
         rays = rays + n_shadow
         alive = alive & (depth + 1 < max_depth)
 
@@ -282,7 +327,27 @@ def make_wavefront_stepper(scene, mode: int, n_lanes: int, chunk: int,
         perm = torch.argsort(key, stable=True)
         m = _pack_state(st, rec_q, rec_l)[perm]
         st = _unpack_state(m, q0)
-        window = torch.flip(m[:, 19:23], dims=[0])
+        if merged:
+            # one mixed launch: closest hits of the sorted next rays and
+            # any hits of this step's shadow rays (in lane order before
+            # the sort)
+            pend, sh_args = deferred
+            t_c, i_c, occ = intersect_mixed(
+                sd, st["o"], st["d"], st["mint"], st["maxt"], *sh_args,
+                raw=True)
+            st["hit_t"], st["hit_tri"] = t_c[:N], i_c[:N]
+            st["primed"] = True
+            # the pending NEE contribution goes to L of surviving lanes
+            # and to the record rows of lanes that ended this step
+            # (their L was captured before the sweep)
+            dlp = (pend * (~occ)[:, None])[perm]
+            done_p = done[perm][:, None]
+            st["L"] = st["L"] + torch.where(done_p, 0.0, dlp)
+            rec_lp = m[:, 20:23] + torch.where(done_p, dlp, 0.0)
+            window = torch.flip(torch.cat([m[:, 19:20], rec_lp], dim=1),
+                                dims=[0])
+        else:
+            window = torch.flip(m[:, 19:23], dims=[0])
         records.index_copy_(0, w_cur + lane_iota, window)
         w_cur = w_cur + n_flush
         return (st, next_q, records, w_cur, rays, q_hi)
@@ -313,7 +378,8 @@ def make_shrink(n_from: int, n_to: int):
         idx = torch.nonzero(active).squeeze(1)[:n_to]
         src[:idx.shape[0]] = idx
         small_active = torch.arange(n_to, device=active.device) < idx.shape[0]
-        new_st = {k: (v if v.dim() == 0 else v[src]) for k, v in st.items()}
+        new_st = {k: (v if not torch.is_tensor(v) or v.dim() == 0
+                      else v[src]) for k, v in st.items()}
         new_st["active"] = small_active
         # inactive packed lanes keep empty ray intervals
         new_st["mint"] = torch.where(small_active, new_st["mint"], 1.0)
@@ -446,16 +512,17 @@ def make_dense_splat(scene, chunk: int, device="cpu"):
 def render_wavefront(scene, spp: int | None = None, seed: int = 0,
                      n_lanes: int = 131072, chunk: int | None = None,
                      verbose: bool = False, sort_rays: bool | None = None,
-                     device=None):
+                     device=None, merged: bool | None = None):
     """Render a path-family scene with the persistent wavefront on
-    `device` (default: the first CUDA device if there is one).
+    `device` (default: the first CUDA device; render.resolve_device).
+    merged: take the merged step (None reads config.MERGED_SWEEP; NEE
+    modes on resident scenes only).
 
     Returns ((H, W, 3) numpy image, stats).  Checkpoint/resume, preview
     snapshots and the per-chunk callback of the JAX package are not
     ported yet (ROADMAP.md).
     """
-    device = torch.device(
-        device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = resolve_device(device)
     sd = scene.compile(device)
     cam = scene.camera
     w, h = cam.output_size
@@ -465,6 +532,8 @@ def render_wavefront(scene, spp: int | None = None, seed: int = 0,
     scene.integrator.preprocess(scene)
     mode = getattr(scene.integrator, "mode", MIS)
     max_depth = getattr(scene.integrator, "max_depth", MAX_DEPTH)
+    # one decision for every stage of the shrink cascade
+    merged = merged_step(scene, mode, merged)
 
     total_q = w * h * spp
     n_lanes = min(n_lanes, max(4096, total_q))
@@ -475,7 +544,7 @@ def render_wavefront(scene, spp: int | None = None, seed: int = 0,
 
     def stepper(n):
         return make_wavefront_stepper(scene, mode, n, chunk, max_depth,
-                                      sort_rays, device)
+                                      sort_rays, device, merged)
 
     init, step, n_act, finalize = stepper(n_lanes)
     # drain-shrink cascade: successively SHRINK_FACTOR-x narrower pools
@@ -524,5 +593,6 @@ def render_wavefront(scene, spp: int | None = None, seed: int = 0,
         # fraction of sweep lanes that carried a live ray (each step
         # sweeps <= 2 rays per lane: closest hit + shadow)
         "occupancy": total_rays / max(2 * lane_steps_total, 1),
+        "merged": merged,
         "device": str(device),
     }

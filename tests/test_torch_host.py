@@ -1,7 +1,8 @@
 """nori_tpu_torch host layer against nori_tpu: scene compilation,
 SceneData round trip, image output bytes, the CLI (a whitted scene
-rendered to EXR/PNG, EXR viewing refused as not yet ported), and the
-jax-free import."""
+rendered to EXR/PNG, EXR viewing refused as not yet ported), the
+default device (CUDA, never the CPU unasked), and the jax-free
+import."""
 
 import os
 import subprocess
@@ -24,9 +25,9 @@ SCENES = {
     "living_room": lambda m: m.living_room(32, 32, 1, detail=3),
     "cornell_box": lambda m: m.cornell_box(32, 32, 1, sphere_subdiv=2),
 }
-#: JAX SceneData fields the port does not carry: the MXU operand (read
-#: by nothing in the port) and the BSDF table (packed in mesh_attr)
-NOT_CARRIED = {"tri_mxu", "bsdf"}
+#: the JAX SceneData field the port does not carry: the BSDF table
+#: (packed in mesh_attr)
+NOT_CARRIED = {"bsdf"}
 
 
 def _jax_arrays(name):
@@ -131,10 +132,45 @@ def test_cli_renders_whitted(tmp_path, capsys):
     assert (tmp_path / "out.png").stat().st_size > 0
 
 
+def test_no_silent_cpu_fallback(tmp_path, monkeypatch):
+    """Without a CUDA device, render, render_wavefront and the CLI
+    raise unless asked for the CPU; asked, they render there."""
+    import torch
+    from nori_tpu_torch.main import main
+    from nori_tpu_torch.render import render
+    from nori_tpu_torch.wavefront import render_wavefront
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        render(torch_scenes.cornell_box(8, 8, 1, integrator="normals",
+                                        sphere_subdiv=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        render_wavefront(torch_scenes.cornell_box(8, 8, 1,
+                                                  sphere_subdiv=1))
+    (tmp_path / "quad.obj").write_text(
+        "v -1 -1 0\nv 1 -1 0\nv 1 1 0\nv -1 1 0\nf 1 2 3\nf 1 3 4\n")
+    (tmp_path / "light.obj").write_text(
+        "v -0.3 -0.3 1\nv 0.3 -0.3 1\nv 0.3 0.3 1\nv -0.3 0.3 1\n"
+        "f 1 3 2\nf 1 4 3\n")
+    xml = tmp_path / "w.xml"
+    xml.write_text(WHITTED_XML)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([str(xml), "-q", "-o", str(tmp_path / "out")])
+    img, st = render(torch_scenes.cornell_box(8, 8, 1, integrator="normals",
+                                              sphere_subdiv=1),
+                     device="cpu")
+    assert st["device"] == "cpu" and img.shape == (8, 8, 3)
+    img, st = render_wavefront(torch_scenes.cornell_box(8, 8, 1,
+                                                        sphere_subdiv=1),
+                               device="cpu")
+    assert st["device"] == "cpu" and np.isfinite(img).all()
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys\n"
         "import nori_tpu_torch, nori_tpu_torch.main, nori_tpu_torch.render\n"
+        "import nori_tpu_torch.config, nori_tpu_torch.accel.traverse\n"
         "import nori_tpu_torch.wavefront, nori_tpu_torch.accel.sweep\n"
         "import nori_tpu_torch.film, nori_tpu_torch.integrators.whitted\n"
         "import nori_tpu_torch.integrators.simple_integrators\n"

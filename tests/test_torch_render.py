@@ -1,10 +1,10 @@
 """The batch driver (nori_tpu_torch.render.render) and the non-path
 integrators against nori_tpu.render.render on the CPU.
 
-Both sides run the Moller-Trumbore test (the port's traverse.USE_BW
-False; the JAX package's CPU scan path) at seed 0.  Cases: the Cornell
-box at 16x16, 2 spp, with every integrator family, and the ajax composition
-(the procedural stand-in for ajax.obj at n_lat=32, n_lon=34, 2,110
+Both sides run the Moller-Trumbore test (the port's
+config.USE_BW_SWEEP False; the JAX package's CPU scan path) at seed 0.
+Cases: the Cornell box at 16x16, 2 spp, with every integrator family,
+and the ajax composition (the procedural stand-in for ajax.obj at n_lat=32, n_lon=34, 2,110
 triangles, with the pa2/pa5 ajax camera) under a lowered streamed
 bound, so the port sweeps it with the streamed sweep's plain version
 and sorts its shadow rays by their own keys.
@@ -30,6 +30,7 @@ from nori_tpu_torch import film as torch_film
 from nori_tpu_torch import render as torch_render
 from nori_tpu_torch import scene as torch_scene_mod
 from nori_tpu_torch import scenes_builtin as torch_scenes
+from nori_tpu_torch import config as torch_config
 from nori_tpu_torch.accel import traverse as torch_traverse
 
 #: the pa2/pa5 ajax camera (scenes/pa2/ajax-normals.xml)
@@ -81,7 +82,7 @@ def ajax_scene(m, width, height, spp, integrator, n_lat=512, n_lon=530):
 
 @pytest.fixture(autouse=True)
 def _moller_trumbore(monkeypatch):
-    monkeypatch.setattr(torch_traverse, "USE_BW", False)
+    monkeypatch.setattr(torch_config, "USE_BW_SWEEP", False)
 
 
 def _cbox(m, integrator):

@@ -32,6 +32,7 @@ from nori_tpu_torch import scene as torch_scene_mod
 from nori_tpu_torch import scenes_builtin as torch_scenes
 from nori_tpu_torch import wavefront as torch_wf
 from nori_tpu_torch.accel import sweep
+from nori_tpu_torch import config as torch_config
 from nori_tpu_torch.accel import traverse as torch_traverse
 
 N_CAMERA, N_BOUNCE = 256, 512
@@ -157,6 +158,49 @@ def test_stream_sweep_rejects_bad_inputs(slabbed):
         sweep.stream_sweep(op, keys.float(), bits, rays)
 
 
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_stream_sweep_culled_plain_matches_pallas(slabbed, any_hit):
+    """K5-cull: the dense plain version against the streamed Pallas
+    sweep with sub-slab culling (cull_t 128, Moller-Trumbore rows):
+    exact hit masks, t within rtol 1e-5."""
+    ops, tb_s, rays_np = slabbed
+    op = ops[False]
+    t_ref, i_ref = pallas_mt.mt_sweep_streamed(
+        jnp.asarray(op), jnp.asarray(tb_s), jnp.asarray(rays_np),
+        any_hit=any_hit, use_bw=False, cull_t=128)
+    t_ref, i_ref = np.asarray(t_ref), np.asarray(i_ref)
+    keys, bits = sweep.ray_tile_entry_keys(_t(tb_s), _t(rays_np))
+    t, i = (a.numpy() for a in sweep.stream_sweep_culled(
+        _t(op), keys, bits, _t(rays_np), any_hit, cull_t=128))
+    hit = i_ref >= 0
+    np.testing.assert_array_equal(i >= 0, hit)
+    assert hit.sum() > 100 and (~hit).sum() > 40
+    if not any_hit:
+        np.testing.assert_allclose(t[hit], t_ref[hit], rtol=1e-5)
+    assert sweep.stream_sweep_culled.launches == 0
+
+
+def test_sub_block_boxes(slabbed):
+    """The per-128-triangle boxes of the MT rows, as _stream_call
+    builds them (pallas_mt.py:770-780), and the granularity rule."""
+    ops, _, _ = slabbed
+    op = ops[False]
+    got = sweep.sub_block_boxes(_t(op), 128).numpy()
+    v0, p1, p2 = op[0:3], op[0:3] + op[3:6], op[0:3] + op[6:9]
+    nq = op.shape[1] // 128
+    lo = np.minimum(v0, np.minimum(p1, p2)).reshape(3, nq, 128).min(-1)
+    hi = np.maximum(v0, np.maximum(p1, p2)).reshape(3, nq, 128).max(-1)
+    np.testing.assert_array_equal(got[:, 0:3], lo.T)
+    np.testing.assert_array_equal(got[:, 3:6], hi.T)
+    assert [sweep.cull_sub_blocks(c) for c in (0, 128, 64, 512, 100)] == [
+        1, 4, 8, 1, 1]
+    keys, bits = sweep.ray_tile_entry_keys(
+        _t(slabbed[1]), _t(slabbed[2]))
+    with pytest.raises(ValueError):
+        sweep.stream_sweep_culled(_t(op), keys, bits, _t(slabbed[2]),
+                                  cull_t=512)
+
+
 # ---------------------------------------------------------------------------
 # the streamed layout at small size
 # ---------------------------------------------------------------------------
@@ -232,6 +276,45 @@ def test_streamed_traverse_matches_jax(small_bound, monkeypatch):
     assert 10 < occ.sum() < hit.sum()
 
 
+def test_stream_cull_config_path_matches_jax(small_bound, monkeypatch):
+    """config.STREAM_CULL_T = 128 with config.USE_BW_SWEEP False sends a
+    streamed scene's queries through K5-cull (its wrapper, here on CPU
+    tensors its plain version), against the JAX package's traverse with
+    the same switches."""
+    js = jax_scenes.living_room(16, 16, 1, detail=3)
+    jsd = js.compile()
+    tsd = torch_scenes.living_room(16, 16, 1, detail=3).compile("cpu")
+    rays_np = _make_rays(jsd, js.camera, 7)
+    o, d = rays_np[0:3].T.copy(), rays_np[3:6].T.copy()
+    mint, maxt = rays_np[6].copy(), rays_np[7].copy()
+    for mod in (config, torch_config):
+        monkeypatch.setattr(mod, "STREAM_CULL_T", 128)
+        monkeypatch.setattr(mod, "USE_BW_SWEEP", False)
+    monkeypatch.setattr(config, "accel_mode", "pallas")
+    calls = []
+    culled = torch_traverse.stream_sweep_culled
+
+    def spy(*a, **k):
+        calls.append(k.get("cull_t"))
+        return culled(*a, **k)
+
+    monkeypatch.setattr(torch_traverse, "stream_sweep_culled", spy)
+    ref = jax_traverse.intersect(jsd, *(jnp.asarray(a) for a in
+                                        (o, d, mint, maxt)))
+    got = torch_traverse.intersect(tsd, _t(o), _t(d), _t(mint), _t(maxt))
+    hit = np.asarray(ref.valid)
+    np.testing.assert_array_equal(got.valid.numpy(), hit)
+    np.testing.assert_allclose(got.t.numpy()[hit], np.asarray(ref.t)[hit],
+                               rtol=1e-5)
+    smaxt = np.where(hit, np.asarray(ref.t) * 0.5, -1.0).astype(np.float32)
+    occ_ref = np.asarray(jax_traverse.occluded(
+        jsd, *(jnp.asarray(a) for a in (o, d, mint, smaxt))))
+    occ = torch_traverse.occluded(tsd, _t(o), _t(d), _t(mint),
+                                  _t(smaxt)).numpy()
+    np.testing.assert_array_equal(occ, occ_ref)
+    assert calls == [128, 128]
+
+
 WAVEFRONT_CASES = {
     # 8 slabs: the exact-bitmask sort
     "detail3": (lambda m: m.living_room(16, 16, 2, detail=3), 4096),
@@ -243,7 +326,7 @@ WAVEFRONT_CASES = {
 @pytest.mark.parametrize("name", sorted(WAVEFRONT_CASES))
 def test_streamed_wavefront_matches_jax(small_bound, monkeypatch, name):
     monkeypatch.setattr(config, "MERGED_SWEEP", False)
-    monkeypatch.setattr(torch_traverse, "USE_BW", False)
+    monkeypatch.setattr(torch_config, "USE_BW_SWEEP", False)
     make, n_lanes = WAVEFRONT_CASES[name]
     ref, ref_st = jax_wf.render_wavefront(make(jax_scenes), seed=0,
                                           n_lanes=n_lanes)

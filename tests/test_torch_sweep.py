@@ -6,9 +6,10 @@ CPU, on the living room at detail 3 (4,096 triangles, 32 tiles) with
 Tolerances: K1 (entry distances and packed keys) and K3 (lane keys)
 are bit-exact, except K3's fine field on lanes with a candidate at
 offset >= 21 (the Pallas kernel reads the field out of a float sum
-that such candidates can round into).  K2: hit masks equal, t within
-rtol 1e-6, triangle indices equal except where two candidates' t tie
-within 1e-6.
+that such candidates can round into).  K2 and K6: hit masks equal, t
+within rtol 1e-6, triangle indices equal except where two candidates'
+t tie within 1e-6; K6's barycentrics within atol 1e-5.  K4 and K2-mxu
+are held against theirs in tests/test_torch_mixed.py.
 """
 
 import numpy as np
@@ -243,3 +244,79 @@ def test_lane_keys_past_2048_tiles():
     assert far.any() and (~far & cand.any(1)).sum() > 100
     fine_eq = (k1 & 0xFFFFF) == (r1 & 0xFFFFF)
     assert fine_eq[~far].all()
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("cull", [True, False])
+def test_mt_sweep_plain_matches_pallas(scenes, rays_np, cull, any_hit):
+    """K6: the dense plain version against the 2-D Pallas sweep, culled
+    and not: hit masks equal; for closest hits t within rtol 1e-6,
+    triangles equal except at ties, the winner's raw barycentrics
+    within atol 1e-5."""
+    jsd, tsd = scenes
+    ref = pallas_mt.mt_sweep(
+        jsd.tri_packed, jsd.tri_tile_bounds, jsd.scene_bounds,
+        jnp.asarray(rays_np), any_hit=any_hit, cull=cull)
+    t_ref, i_ref, u_ref, v_ref = (np.asarray(a) for a in ref)
+    t, i, u, v = (a.numpy() for a in sweep.mt_sweep(
+        tsd.tri_packed, tsd.tri_tile_bounds, tsd.scene_bounds, _t(rays_np),
+        any_hit=any_hit, cull=cull))
+    hit = i_ref >= 0
+    np.testing.assert_array_equal(i >= 0, hit)
+    assert hit.sum() > 100 and (~hit).sum() > 40
+    if any_hit:
+        return
+    np.testing.assert_allclose(t[hit], t_ref[hit], rtol=1e-6)
+    op = tsd.tri_packed.numpy()
+    for r in np.nonzero(hit & (i != i_ref))[0]:
+        col = torch.from_numpy(rays_np[:, r:r + 1].copy())
+        both = torch.from_numpy(op[:, [i[r], i_ref[r]]].copy())
+        ok, tt = sweep._pair_test(
+            both, (col[0:1], col[1:2], col[2:3]),
+            (col[3:4], col[4:5], col[5:6]), col[6:7], col[7:8])
+        assert bool(ok.all())
+        assert abs(float(tt[0, 0] - tt[0, 1])) <= 1e-6 * abs(t_ref[r])
+    same = hit & (i == i_ref)
+    np.testing.assert_allclose(u[same], u_ref[same], atol=1e-5)
+    np.testing.assert_allclose(v[same], v_ref[same], atol=1e-5)
+    assert (u[~hit] == 0).all() and (v[~hit] == 0).all()
+
+
+def test_new_wrappers_route_cpu_tensors_to_plain(scenes, rays_np):
+    """K4, K2-mxu and K6 take their plain versions for CPU tensors and
+    count no launch; bad operands raise."""
+    _, tsd = scenes
+    rays = _t(rays_np)
+    tb = tsd.tri_tile_bounds
+    keys, bits = sweep.ray_tile_entry_keys(tb, rays)
+    n_rt = rays.shape[1] // sweep.TILE_N
+    flags = (torch.arange(n_rt) % 2).to(torch.int32)
+    got = sweep.resident_sweep_mixed(tsd.tri_bw, keys, bits, rays, flags)
+    for a, b in zip(got, sweep.resident_sweep_plain(tsd.tri_bw, rays)):
+        assert torch.equal(a, b)
+    got = sweep.mt_sweep(tsd.tri_packed, tb, tsd.scene_bounds, rays)
+    for a, b in zip(got, sweep.mt_sweep_plain(tsd.tri_packed, rays)):
+        assert torch.equal(a, b)
+    assert (sweep.resident_sweep_mixed.launches, sweep.mt_sweep.launches,
+            sweep.resident_sweep_mxu.launches) == (0, 0, 0)
+    with pytest.raises(ValueError):   # one flag short
+        sweep.resident_sweep_mixed(tsd.tri_bw, keys, bits, rays,
+                                   flags[:-1].contiguous())
+    with pytest.raises(TypeError):
+        sweep.resident_sweep_mixed(tsd.tri_bw, keys, bits, rays,
+                                   flags.to(torch.int64))
+    with pytest.raises(ValueError):   # the BW rows are not the MT soup
+        sweep.mt_sweep(tsd.tri_bw, tb, tsd.scene_bounds, rays)
+
+
+def test_mt_sweep_coarse_bounds(scenes):
+    """K6 coarsens the 128-triangle tile boxes to 512-triangle tiles as
+    pallas_mt.py:1486-1491 does."""
+    jsd, tsd = scenes
+    tb = np.asarray(jsd.tri_tile_bounds)
+    n_tt = tb.shape[0] // 4
+    got = sweep.coarse_bounds(tsd.tri_tile_bounds, n_tt).numpy()
+    g = tb.reshape(n_tt, 4, 8)
+    np.testing.assert_array_equal(got[:, 0:3], g[:, :, 0:3].min(1))
+    np.testing.assert_array_equal(got[:, 3:6], g[:, :, 3:6].max(1))
+    assert (got[:, 6:] == 0).all()

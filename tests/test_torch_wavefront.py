@@ -1,9 +1,9 @@
 """The slice end to end: nori_tpu_torch's persistent-wavefront path_mis
 render on the CPU against nori_tpu's.
 
-Both sides run the Moller-Trumbore test (the port's traverse.USE_BW
-False; the JAX package's CPU scan path) with config.MERGED_SWEEP pinned
-False, at seed 0 with 4,096 lanes.  The living room (32 tiles) takes the
+Both sides run the Moller-Trumbore test (the port's
+config.USE_BW_SWEEP False; the JAX package's CPU scan path) with
+config.MERGED_SWEEP pinned False, at seed 0 with 4,096 lanes.  The living room (32 tiles) takes the
 kernel-key coherence sort, the Cornell box (8 tiles, sort forced on)
 the exact-bitmask sort.
 
@@ -34,6 +34,7 @@ from nori_tpu.integrators.path import MIS
 
 from nori_tpu_torch import scenes_builtin as torch_scenes
 from nori_tpu_torch import wavefront as torch_wf
+from nori_tpu_torch import config as torch_config
 from nori_tpu_torch.accel import traverse as torch_traverse
 
 CASES = {
@@ -46,7 +47,7 @@ N_LANES = 4096
 
 @pytest.fixture(autouse=True)
 def _unmerged(monkeypatch):
-    monkeypatch.setattr(torch_traverse, "USE_BW", False)
+    monkeypatch.setattr(torch_config, "USE_BW_SWEEP", False)
     old = config.MERGED_SWEEP
     config.MERGED_SWEEP = False
     yield
