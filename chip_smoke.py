@@ -15,7 +15,11 @@ its kernels:
   K2, K3): each kernel against its plain PyTorch version on the card at
   the path's shapes, a small render on the card against the CPU, and
   the full 1280x720, 32 spp, 524,288-lane render through
-  `render_to_files`;
+  `render_to_files`.  K2 (BW and MT closest, BW any-hit) must give the
+  plain version's hits, triangles and t bits; each query prints its
+  visits per ray tile over both of K2's passes (mean, p50, p99, max,
+  the ray tiles above 4x the mean) and the work items its first pass
+  left to the tail pass, and so do K4 and K2-mxu;
 * the merged wavefront step (config.MERGED_SWEEP, K4): K4 against its
   plain version and against the two K2 launches it replaces, then the
   full render merged, alternated with the two-launch render, whose
@@ -31,7 +35,8 @@ its kernels:
   K3, K5): the kernels against their plain versions on the slab
   bounds and 32,768 camera and shadow rays, K5 any-hit also on one
   whole 131,072-sample whitted batch's shadow rays in the order
-  `traverse.occluded` sorts them, normals/whitted/path_mis
+  `traverse.occluded` sorts them (and unsorted), each with the bound of
+  the slabs it visited, normals/whitted/path_mis
   renders on the card against the CPU, and the full ajax_normals
   (768x768, 4 spp) and ajax_rough (768x768, 16 spp, whitted) renders
   through `render_to_files`, which must launch K5 and never K2;
@@ -211,16 +216,48 @@ def sweep_bytes(read_rows: int, T: int, n_rays: int, key_cols: int) -> float:
                   + 2 * n_rays)
 
 
-def visited_pairs(call, rays, group: int) -> int:
-    """Ray-triangle pairs a sweep tested on these rays: per ray tile the
-    groups of `group` triangles it visited (the kernel's visit count)
-    x group x 256."""
+def sweep_visits(call, rays):
+    """The kernel's visit count per ray tile on these rays: (n_rt,)
+    int32, the triangle groups each ray tile tested."""
     import torch
 
     visits = torch.zeros(rays.shape[1] // 256, dtype=torch.int32,
                          device=rays.device)
     call(visits)
-    return int(visits.sum()) * group * 256
+    return visits
+
+
+def visited_pairs(call, rays, group: int) -> int:
+    """Ray-triangle pairs a sweep tested on these rays: per ray tile the
+    groups of `group` triangles it visited x group x 256."""
+    return int(sweep_visits(call, rays).sum()) * group * 256
+
+
+def visit_stats(visits) -> dict:
+    """Distribution of visit counts over ray tiles (idle tiles included):
+    mean, p50, p99, max, and the ray tiles above 4x the mean."""
+    v = visits.double().cpu()
+    mean = float(v.mean())
+    return dict(mean=mean, p50=float(v.quantile(0.5)),
+                p99=float(v.quantile(0.99)), max=int(v.max()),
+                over_4x_mean=int((v > 4 * mean).sum()), ray_tiles=v.numel())
+
+
+def fmt_stats(s: dict) -> str:
+    return (f"visits per ray tile: mean {s['mean']:.2f}, p50 {s['p50']:.0f}, "
+            f"p99 {s['p99']:.1f}, max {s['max']}, {s['over_4x_mean']} of "
+            f"{s['ray_tiles']} ray tiles above 4x the mean")
+
+
+def resident_run(call, rays, n_keys: int):
+    """One run of a resident sweep (K2, K2-mxu, K4), given as
+    call(visits, workspace): its visits per ray tile, summed over both
+    passes, and the work items its first pass left to the tail pass."""
+    from nori_tpu_torch.accel import sweep
+
+    ws = sweep.resident_workspace(rays.shape[1], n_keys, rays.device)
+    visits = sweep_visits(lambda v: call(v, ws), rays)
+    return visits, sweep.tail_items(ws, rays.shape[1], n_keys)
 
 
 def time_ms(fn, reps: int = 3) -> float:
@@ -360,20 +397,30 @@ def check_kernels(sd, rays, shadow) -> dict:
                 raise AssertionError(
                     f"resident_sweep {label}: {n_idx} closest-hit triangles "
                     "differ from the plain version")
+            # the tail pass's packed fold keeps t's bits, -0 included
+            n_bits = int((t_k.view(torch.int32)
+                          != t_p.view(torch.int32))[both].sum())
+            if n_bits:
+                raise AssertionError(
+                    f"resident_sweep {label}: t bits differ from the plain "
+                    f"version on {n_bits} rays")
             err = max(err, float(dt.max()) if dt.numel() else 0.0)
-        pairs = visited_pairs(
-            lambda v: sweep.resident_sweep(op, keys, bits, r, any_hit,
-                                           visits=v), r, sweep.FINE_T)
+        visits, items = resident_run(
+            lambda v, ws: sweep.resident_sweep(op, keys, bits, r, any_hit,
+                                               visits=v, workspace=ws),
+            r, n_tt)
+        pairs = int(visits.sum()) * sweep.FINE_T * 256
         timing[label] = dict(
             ms=time_ms(lambda: sweep.resident_sweep(op, keys, bits, r,
                                                     any_hit)),
             plain_ms=time_ms(lambda: sweep.resident_sweep_plain(op, r,
                                                                 any_hit), 1),
-            pairs=pairs, tiles_per_ray_tile=pairs / 128 / n)
+            pairs=pairs, tiles_per_ray_tile=pairs / 128 / n,
+            visits=visit_stats(visits), tail_items=items)
         log(f"K2 resident_sweep {label}: {int(hit_k.sum())} hits agree; "
             f"{timing[label]['ms']:.3f} ms vs plain "
             f"{timing[label]['plain_ms']:.3f} ms; "
-            f"{pairs / 128 / n:.2f} tiles visited per ray tile")
+            f"{fmt_stats(timing[label]['visits'])}; {items} tail items")
     bw = timing["bw closest"]
     records["resident_sweep"] = record(
         "resident_sweep", bw["ms"], bw["plain_ms"], err,
@@ -433,8 +480,10 @@ def check_merged_mxu_k6(sd, rays, shadow) -> dict:
     if not torch.equal(i_m[n:] >= 0, i_s >= 0):
         raise AssertionError("resident_sweep_mixed: any-hit tiles differ "
                              "from the any-hit K2 launch")
-    pairs = visited_pairs(lambda v: sweep.resident_sweep_mixed(
-        sd.tri_bw, keys, bits, both, flags, visits=v), both, sweep.FINE_T)
+    visits, items = resident_run(lambda v, ws: sweep.resident_sweep_mixed(
+        sd.tri_bw, keys, bits, both, flags, visits=v, workspace=ws), both,
+        n_tt)
+    pairs = int(visits.sum()) * sweep.FINE_T * 256
     ms = time_ms(lambda: sweep.resident_sweep_mixed(sd.tri_bw, keys, bits,
                                                     both, flags))
     ms_two = time_ms(lambda: (
@@ -445,11 +494,14 @@ def check_merged_mxu_k6(sd, rays, shadow) -> dict:
         time_ms(lambda: sweep.resident_sweep_plain(sd.tri_bw, both), 1),
         err, float(PAIR_OPS["bw"]) * pairs,
         sweep_bytes(12, T, n2, n_tt) + 4.0 * (n2 // 256),
-        two_k2_ms=ms_two, tiles_per_ray_tile=pairs / 128 / n2)
+        two_k2_ms=ms_two, tiles_per_ray_tile=pairs / 128 / n2,
+        visits=visit_stats(visits), tail_items=items)
     log(f"K4 resident_sweep_mixed ({n} closest + {n} shadow rays): equal to "
         f"its plain version and to the two K2 launches; {ms:.3f} ms vs the "
         f"two K2 launches {ms_two:.3f} ms vs plain "
-        f"{records['resident_sweep_mixed']['plain_ms']:.3f} ms")
+        f"{records['resident_sweep_mixed']['plain_ms']:.3f} ms; "
+        f"{fmt_stats(records['resident_sweep_mixed']['visits'])}; "
+        f"{items} tail items")
 
     # K2-mxu: exact against its plain version; hit masks against BW K2
     keys, bits = sweep.ray_tile_entry_keys(tb, rays)
@@ -471,8 +523,9 @@ def check_merged_mxu_k6(sd, rays, shadow) -> dict:
     if not torch.equal(i_xs >= 0, i_ps >= 0):
         raise AssertionError("resident_sweep_mxu any-hit: hit mask differs "
                              "from its plain version")
-    pairs = visited_pairs(lambda v: sweep.resident_sweep_mxu(
-        sd.tri_mxu, keys, bits, rays, visits=v), rays, sweep.FINE_T)
+    visits, items = resident_run(lambda v, ws: sweep.resident_sweep_mxu(
+        sd.tri_mxu, keys, bits, rays, visits=v, workspace=ws), rays, n_tt)
+    pairs = int(visits.sum()) * sweep.FINE_T * 256
     records["resident_sweep_mxu"] = record(
         "resident_sweep_mxu",
         time_ms(lambda: sweep.resident_sweep_mxu(sd.tri_mxu, keys, bits,
@@ -480,12 +533,15 @@ def check_merged_mxu_k6(sd, rays, shadow) -> dict:
         time_ms(lambda: sweep.resident_sweep_mxu_plain(sd.tri_mxu, rays), 1),
         0.0, float(PAIR_OPS["mxu"]) * pairs, sweep_bytes(40, T, n, n_tt),
         hit_mask_agreement_with_bw=agree, same_triangle_as_bw=same_tri,
-        tiles_per_ray_tile=pairs / 128 / n)
+        tiles_per_ray_tile=pairs / 128 / n, visits=visit_stats(visits),
+        tail_items=items)
     log(f"K2-mxu resident_sweep_mxu: exact against its plain version "
         f"(closest and any-hit); hit masks agree with BW K2 on {agree:.6f}, "
         f"triangles on {same_tri:.6f} of rays; "
         f"{records['resident_sweep_mxu']['ms']:.3f} ms vs plain "
-        f"{records['resident_sweep_mxu']['plain_ms']:.3f} ms")
+        f"{records['resident_sweep_mxu']['plain_ms']:.3f} ms; "
+        f"{fmt_stats(records['resident_sweep_mxu']['visits'])}; "
+        f"{items} tail items")
     records["mt_sweep"] = check_k6(sd, rays, shadow)
     return records
 
@@ -948,7 +1004,8 @@ def check_sorted_any_hit(sd, dev):
     keys on the 1,058 slab bounds), against the plain sweep of the same
     rays unsorted; then the kernel on the unsorted rays and
     traverse.occluded itself against it.  Returns {label: {ms,
-    plain_ms}} for the sorted and the unsorted order."""
+    plain_ms, pairs, bound_ms, ...}} for the sorted and the unsorted
+    order."""
     import torch
     from nori_tpu_torch.accel import sweep, traverse
     from nori_tpu_torch.render import DEFAULT_BATCH
@@ -962,12 +1019,13 @@ def check_sorted_any_hit(sd, dev):
     keys, bits = sweep.ray_tile_entry_keys(sd.tri_tile_bounds, srt)
     keys_u, bits_u = sweep.ray_tile_entry_keys(sd.tri_tile_bounds, shadow)
 
-    def kern():
-        return sweep.stream_sweep(sd.tri_bw, keys, bits, srt, True, True)
+    def kern(v=None):
+        return sweep.stream_sweep(sd.tri_bw, keys, bits, srt, True, True,
+                                  visits=v)
 
-    def kern_unsorted():
+    def kern_unsorted(v=None):
         return sweep.stream_sweep(sd.tri_bw, keys_u, bits_u, shadow, True,
-                                  True)
+                                  True, visits=v)
 
     _, idx = kern()
     hit_k = torch.empty_like(idx, dtype=torch.bool)
@@ -996,15 +1054,29 @@ def check_sorted_any_hit(sd, dev):
     ms_u = time_ms(kern_unsorted)
     sort_ms = time_ms(
         lambda: shadow[:, traverse.shadow_order(sd, shadow)].contiguous())
+    # bounds as check_ajax_kernels' rows: the pairs each order's visits
+    # needed x 40 ops (BW), every input byte once
+    n, T = DEFAULT_BATCH, sd.tri_bw.shape[1]
+    nbytes = sweep_bytes(12, T, n, sd.tri_tile_bounds.shape[0])
+    out = {}
+    for label, fn, t in (("bw any-hit sorted", kern, ms),
+                         ("bw any-hit unsorted", kern_unsorted, ms_u)):
+        pairs = visited_pairs(fn, shadow, sweep.STREAM_T)
+        out[label] = dict(ms=t, plain_ms=plain_ms, pairs=pairs,
+                          slabs_per_ray_tile=pairs / 512 / n,
+                          **bound(float(PAIR_OPS["bw"]) * pairs, nbytes))
+    out["bw any-hit sorted"]["sort_ms"] = sort_ms
     log(f"K5 stream_sweep bw any-hit sorted (batch {AJAX_SORTED_BATCH}, "
         f"{DEFAULT_BATCH} rays, {int((shadow[6] <= shadow[7]).sum())} live): "
         f"{int(hit_p.sum())} hits agree, traverse.occluded agrees; "
-        f"{ms:.3f} ms vs plain {plain_ms:.3f} ms; the same rays unsorted "
-        f"agree too, {ms_u:.3f} ms; the sort (K3, argsort, gather) "
-        f"{sort_ms:.3f} ms")
-    return {"bw any-hit sorted": dict(ms=ms, plain_ms=plain_ms,
-                                      sort_ms=sort_ms),
-            "bw any-hit unsorted": dict(ms=ms_u, plain_ms=plain_ms)}
+        f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
+        f"{out['bw any-hit sorted']['bound_ms']:.3f} ms "
+        f"({out['bw any-hit sorted']['slabs_per_ray_tile']:.2f} slabs per "
+        f"ray tile); the same rays unsorted agree too, {ms_u:.3f} ms, bound "
+        f"{out['bw any-hit unsorted']['bound_ms']:.3f} ms "
+        f"({out['bw any-hit unsorted']['slabs_per_ray_tile']:.2f}); the sort "
+        f"(K3, argsort, gather) {sort_ms:.3f} ms")
+    return out
 
 
 def gate(label: str, a, st_a, b, st_b, names=("card", "cpu")):

@@ -20,7 +20,10 @@ that its main path went through the kernels.  The sweeps take an
 optional `visits` tensor, (n_rt,) int32 on the card, into which the
 kernel writes how many triangle groups each ray tile tested (the work
 a run's data needs, for the kernels' bounds); the plain versions sweep
-densely and leave it untouched.
+densely and leave it untouched.  The resident sweeps (K2, K2-mxu, K4)
+allocate their scratch per call, or take it as `workspace`
+(resident_workspace), after which tail_items reads how much work the
+first pass left to the tail pass.
 
 Layouts are the JAX package's: rays (8, N) [o | d | mint | maxt] with
 N a multiple of TILE_N (pack_rays pads), tile bounds (n_tt, 8)
@@ -293,34 +296,82 @@ def _check_keys(keys, idx_bits: int, n_rt: int, n_tt: int, unit: str):
 
 
 _OP_MT, _OP_BW, _OP_MXU = 0, 1, 2
+#: keys a ray tile walks in the resident sweep's first pass, and keys per
+#: work item of its tail pass (csrc/common.cuh RESIDENT_V, RESIDENT_S)
+RESIDENT_V = 4
+RESIDENT_S = 4
+
+
+def _workspace_layout(n: int, n_keys: int):
+    """(work list capacity, int32 words) of the resident sweep's scratch
+    for n rays and key rows of n_keys."""
+    cap = n // TILE_N * -(-n_keys // RESIDENT_S)
+    return cap, 2 * n + 4 * cap + 2 + n // TILE_N
+
+
+def resident_workspace(n: int, n_keys: int, device):
+    """Scratch of the two-pass resident sweep, one int32 tensor: the
+    per-ray packed best (n int64), the work list, sized for the worst
+    case of n_rt * ceil(n_keys / RESIDENT_S) items of 4 int32, two
+    counters (items pushed, items pulled) and one pending count per ray
+    tile.  The kernel initialises what it reads."""
+    return torch.empty((_workspace_layout(n, n_keys)[1],), dtype=torch.int32,
+                       device=device)
+
+
+def tail_items(workspace, n: int, n_keys: int) -> int:
+    """The work items that the last resident sweep run on `workspace`
+    (for n rays, key rows of n_keys) pushed to its tail pass; reads the
+    device."""
+    return int(workspace[2 * n + 4 * _workspace_layout(n, n_keys)[0]])
 
 
 def _resident_launch(op: int, tris_op, T: int, keys, idx_bits: int, rays,
-                     any_hit: bool, tile_ah, visits):
-    n = rays.shape[1]
+                     any_hit: bool, tile_ah, visits, workspace):
+    if tris_op.data_ptr() % 16:
+        raise ValueError("tris_op: the tile copies need 16-byte alignment")
+    n, n_keys = rays.shape[1], keys.shape[1]
+    cap, words = _workspace_layout(n, n_keys)
+    if workspace is None:
+        workspace = resident_workspace(n, n_keys, rays.device)
+    _check(workspace, "workspace", torch.int32, 1, rays.device)
+    if workspace.shape[0] < words:
+        raise ValueError(f"workspace: {workspace.shape[0]} int32, expected "
+                         f"at least {words}")
+    best = workspace.data_ptr()
+    items = best + 8 * n          # n is a multiple of TILE_N: 16-aligned
+    counters = items + 16 * cap
     t = torch.empty((n,), dtype=torch.float32, device=rays.device)
     idx = torch.empty((n,), dtype=torch.int32, device=rays.device)
     lib = cuda_build.load()
     err = lib.resident_sweep_launch(
-        tris_op.data_ptr(), op, T, keys.data_ptr(), keys.shape[1],
-        idx_bits, rays.data_ptr(), n, t.data_ptr(), idx.data_ptr(),
-        int(any_hit), 0 if tile_ah is None else tile_ah.data_ptr(),
-        _visits_ptr(visits, n // TILE_N, rays.device), _stream(rays.device))
+        tris_op.data_ptr(), op, T, keys.data_ptr(), n_keys, idx_bits,
+        rays.data_ptr(), n, t.data_ptr(), idx.data_ptr(), int(any_hit),
+        0 if tile_ah is None else tile_ah.data_ptr(),
+        _visits_ptr(visits, n // TILE_N, rays.device), best, items,
+        counters, counters + 8, _stream(rays.device))
+    # a workspace allocated here may be freed on return: the caching
+    # allocator hands it out again only to work queued after the sweep
+    # on the same stream
     return t, idx, err
 
 
 def resident_sweep(tris_op, keys, idx_bits: int, rays,
-                   any_hit: bool = False, visits=None):
+                   any_hit: bool = False, visits=None, workspace=None):
     """K2 wrapper: (t (N,) f32, idx (N,) int32) for (8, N) rays against
     the (9, T) or (12, T) operand, walking `keys` from
     ray_tile_entry_keys.
 
     Kernel: csrc/resident_sweep.cu, replacing pallas_mt.py
     `_mt_resident_kernel`.  Bound on the H100 by the pair-test
-    arithmetic and the per-visit block reduction; one block per ray
-    tile stages each visited 128-triangle tile in shared memory and
-    stops at the skyline.  The plain version (CPU tensors) sweeps
-    densely and does not read the keys.
+    arithmetic once the walks spread over the card: a first pass of
+    one block per ray tile walks at most RESIDENT_V keys, staging each
+    visited 128-triangle tile in shared memory, and stops at the
+    skyline; a tail pass of persistent blocks finishes the longer rows
+    in items of RESIDENT_S keys, folding into a packed per-ray best.
+    Both launches are queued without a host read between them.  The
+    plain version (CPU tensors) sweeps densely and does not read the
+    keys.
     """
     _check_rays(rays)
     _check(tris_op, "tris_op", torch.float32, 2, rays.device)
@@ -335,7 +386,7 @@ def resident_sweep(tris_op, keys, idx_bits: int, rays,
         return resident_sweep_plain(tris_op, rays, any_hit)
     t, idx, err = _resident_launch(_OP_BW if rows == 12 else _OP_MT, tris_op,
                                    T, keys, idx_bits, rays, any_hit, None,
-                                   visits)
+                                   visits, workspace)
     resident_sweep.launches += 1
     _raise_on(err, "resident_sweep")
     return t, idx
@@ -349,7 +400,7 @@ resident_sweep.launches = 0
 # ---------------------------------------------------------------------------
 
 def resident_sweep_mixed(tris_op, keys, idx_bits: int, rays, tile_ah,
-                         visits=None):
+                         visits=None, workspace=None):
     """K4 wrapper: K2 over (8, N) rays whose 256-ray tiles are each
     flagged closest (0) or any-hit (nonzero) by tile_ah, (N / 256,)
     int32, in one launch.  Returns (t, idx) as resident_sweep; for
@@ -359,8 +410,9 @@ def resident_sweep_mixed(tris_op, keys, idx_bits: int, rays, tile_ah,
     pallas_mt.py `_mt_resident_kernel` with `mixed=True`
     (`mt_sweep_resident_mixed`).  Each block reads its flag once and
     takes the closest or the any-hit exit rule as a block-uniform
-    branch.  The plain version is resident_sweep_plain over all rays:
-    it is dense, so the flags change nothing for it.
+    branch; a tail item carries the flag of its ray tile, so both kinds
+    share the work list.  The plain version is resident_sweep_plain
+    over all rays: it is dense, so the flags change nothing for it.
     """
     _check_rays(rays)
     _check(tris_op, "tris_op", torch.float32, 2, rays.device)
@@ -379,7 +431,7 @@ def resident_sweep_mixed(tris_op, keys, idx_bits: int, rays, tile_ah,
         return resident_sweep_plain(tris_op, rays)
     t, idx, err = _resident_launch(_OP_BW if rows == 12 else _OP_MT, tris_op,
                                    T, keys, idx_bits, rays, False, tile_ah,
-                                   visits)
+                                   visits, workspace)
     resident_sweep_mixed.launches += 1
     _raise_on(err, "resident_sweep_mixed")
     return t, idx
@@ -439,13 +491,14 @@ def resident_sweep_mxu_plain(tri_mxu, rays, any_hit: bool = False):
 
 
 def resident_sweep_mxu(tri_mxu, keys, idx_bits: int, rays,
-                       any_hit: bool = False, visits=None):
+                       any_hit: bool = False, visits=None, workspace=None):
     """K2-mxu wrapper: resident_sweep on the (16, 4T) matmul-form
     operand `SceneData.tri_mxu` (10 live feature rows).
 
     Kernel: csrc/resident_sweep.cu (op MXU), replacing pallas_mt.py
-    `_mt_resident_kernel` with `use_mxu=True`.  Each visit stages the
-    tile's 10 x 512 weights (20 KB) in shared memory; each thread forms
+    `_mt_resident_kernel` with `use_mxu=True`, in K2's two passes.  Each
+    visit stages the tile's 10 x 512 weights (20 KB, double-buffered:
+    40 KB a block) in shared memory; each thread forms
     its ray's 10 features and takes det and the three numerators as
     10-term fp32 sums (~90 flops per pair, on the FP32 units: TF32
     tensor cores would lose the hit test's precision).
@@ -463,7 +516,7 @@ def resident_sweep_mxu(tri_mxu, keys, idx_bits: int, rays,
     if rays.device.type == "cpu":
         return resident_sweep_mxu_plain(tri_mxu, rays, any_hit)
     t, idx, err = _resident_launch(_OP_MXU, tri_mxu, T, keys, idx_bits, rays,
-                                   any_hit, None, visits)
+                                   any_hit, None, visits, workspace)
     resident_sweep_mxu.launches += 1
     _raise_on(err, "resident_sweep_mxu")
     return t, idx

@@ -13,6 +13,15 @@
 #define TILE_N 256    // rays per ray tile (one block)
 #define FINE_T 128    // triangles per triangle tile (resident sweep)
 #define STREAM_T 512  // triangles per slab (streamed sweep)
+// The resident sweep's two passes (resident_sweep.cu): a ray tile walks
+// at most RESIDENT_V keys in the first pass; the rest of a longer row is
+// cut into work items of RESIDENT_S keys for the tail pass.  Chosen from
+// the living room's visits per ray tile (PERF.md): p50 2 (closest) and
+// 12 (any-hit), p99 ~155, max 271 of 404 tiles.  Most closest tiles end
+// within 4 visits; shorter walks shorten the longest chain, and below 4
+// and 4 the measured times flatten while the work list grows as 1/S.
+#define RESIDENT_V 4
+#define RESIDENT_S 4
 
 // 1/c with |c| clamped away from zero, keeping the sign (the JAX
 // package's slab-test reciprocal).

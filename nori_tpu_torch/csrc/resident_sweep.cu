@@ -16,93 +16,224 @@
 // index.  For any-hit only idx >= 0 is meaningful.  tile_ah, when not
 // null, holds one int32 per ray tile: nonzero tiles take the any-hit
 // exit, the others the closest one (K4).  visits, when not null,
-// receives per ray tile the number of 128-triangle tiles it tested.
+// receives per ray tile the number of 128-triangle tiles it tested, in
+// both passes.  The caller's workspace holds the per-ray packed best
+// (N x 8 bytes), the work list (n_rt x ceil(n_keys / RESIDENT_S) items
+// of 4 int32), two counters and one pending count per ray tile.
 //
 // Bound on the H100: arithmetic in the pair test (~40 flops BW, ~56
-// MT, ~90 MXU) and, per visit, the block-wide skyline reduction.
-// Design: one block per 256-ray tile, one thread per ray.  Each visited
-// tile's 128 triangles (12, 9 or, for MXU, 10 x 4 x 128 weights: at
-// most 20 KB) are staged in shared memory and every thread tests its
-// ray against all of them, reading the same shared word as the rest of
-// its warp (a broadcast).  After a visit the block recomputes t_hi, the
-// largest useful t over its live rays, as an integer max of the float
-// bits (all values >= 0, so the int order is the float order), and
-// stops at the first key whose entry bits exceed it; keys are compared
-// as integers, so a non-candidate key (inf or NaN bits) ends the walk.
-// Any-hit stops once every live ray has a hit.  In the mixed launch the
-// flag is read once per block, so both exit rules are block-uniform
-// branches.  The whole operand stays in device memory (2.5 MB BW, 13 MB
-// MXU for the 51.7k-triangle living room, resident in the 50 MB L2);
-// the TPU's VMEM residency, SMEM key chunking (of the mixed launch
-// too), key-row cap with its all-tiles fallback and visit width are not
-// needed: one launch covers all rays with uncapped key rows and gives
-// the same (t, idx).
+// MT, ~90 MXU), but only if the walks spread over the card.  One block
+// (one thread per ray) tests a 128-triangle tile in 10-20 us when it
+// runs alone on its SM, and a row is long when one of its rays escapes
+// or hits far: such a ray holds the tile's skyline open over nearly
+// every candidate.  On the living room the visits per ray tile have a
+// median of 2 (closest) and 12 (any-hit) but a maximum of 271 of 404
+// tiles, and a one-pass walk ends with its longest rows on a few SMs
+// while the others idle (PERF.md).
+//
+// Design: two launches, with no host read between them.
+// * First pass, one block per 256-ray tile.  Each visited tile's 128
+//   triangles (12, 9 or, for MXU, 10 x 4 x 128 weights: at most 20 KB)
+//   are staged in shared memory by cp.async into a double buffer: the
+//   copy of key k+1 is issued before the test of key k.  Every thread
+//   tests its ray against the staged tile, reading the same shared word
+//   as the rest of its warp (a broadcast).  After a visit the block
+//   recomputes the skyline t_hi, the largest useful t over its rays
+//   still searching, as an integer max of the float bits (all values
+//   >= 0), and stops at the first key whose entry bits exceed it; keys
+//   compare as integers, so a non-candidate key (inf or NaN bits) ends
+//   the walk.  Any-hit stops once every live ray has a hit.  The
+//   reduction, the landing of the next copy and the release of the
+//   tested buffer share one __syncthreads per visit.  A walk stops
+//   after RESIDENT_V visits; if keys that pass the skyline remain, the
+//   block stores its rays' best hits as packed words and pushes the
+//   rest of its row as items of RESIDENT_S keys (one atomicAdd).
+// * Tail pass, a fixed grid of persistent blocks (as many as the SMs
+//   hold at once) that pull items until the list is empty; with no
+//   items it costs each block one atomic.  An item loads its ray tile's
+//   rays, starts from the packed best of each ray (an upper bound of
+//   the final best, so pruning with it stays exact), walks its keys
+//   with the same skyline or any-hit exit, and folds its hits with a
+//   64-bit atomicMin.  The packed word orders as the fold does: the
+//   smallest t, then the lowest index, whatever the order of the items.
+//   The item that finishes a ray tile's last pending count writes its
+//   t and idx.
+// This is the Hopper counterpart of the TPU kernel's capped key rows
+// with their exact all-tiles fallback (pallas_mt.py:487-520): there a
+// row past its cap was finished by one sweep over every tile, here the
+// rest of a long row is spread over the card.  The operand stays in
+// device memory (2.5 MB BW, 13 MB MXU for the 51.7k-triangle living
+// room, resident in the 50 MB L2); the TPU's VMEM residency, SMEM key
+// chunking (of the mixed launch too) and visit width are not needed.
 //
 // MXU form: the TPU multiplies ray features F = [o, d, o x d, 1] by the
 // (10, 4 x 128) weight block of a tile on its matrix unit.  Here each
 // thread forms its ray's 10 features and takes det, u_num, v_num and
 // t_num as 10-term fp32 sums in feature order, on the FP32 units: TF32
 // tensor cores keep ~3 digits and the hit test needs full fp32.
+#include <cuda_pipeline.h>
+
 #include "common.cuh"
 
 enum { OP_MT = 0, OP_BW = 1, OP_MXU = 2 };
 
 template <int OP>
-struct Rows { static constexpr int n = OP == OP_BW ? 12 : OP == OP_MT ? 9 : 10; };
+struct Op {
+    static constexpr int rows = OP == OP_BW ? 12 : OP == OP_MT ? 9 : 10;
+    static constexpr int cols = OP == OP_MXU ? 4 * FINE_T : FINE_T;
+    static constexpr int tile = rows * cols;  // floats staged per visit
+};
 
-template <int OP, bool ANY_HIT, bool MIXED>
-__global__ void resident_sweep_kernel(
-        const float* __restrict__ tris, int T, const int* __restrict__ keys,
-        int n_keys, int idx_mask, const float* __restrict__ rays, int n,
-        const int* __restrict__ tile_ah, float* __restrict__ t_out,
-        int* __restrict__ idx_out, int* __restrict__ visits) {
-    constexpr int ROWS = Rows<OP>::n;
-    constexpr int COLS = OP == OP_MXU ? 4 * FINE_T : FINE_T;
-    __shared__ float s_tri[ROWS][COLS];
-    __shared__ int s_red[TILE_N / 32];
-    const int rt = blockIdx.x;
-    const int r = rt * TILE_N + threadIdx.x;
-    const float ox = rays[0 * n + r], oy = rays[1 * n + r], oz = rays[2 * n + r];
-    const float dx = rays[3 * n + r], dy = rays[4 * n + r], dz = rays[5 * n + r];
-    const float mint = rays[6 * n + r], maxt = rays[7 * n + r];
-    const bool live = mint <= maxt;
-    // the exit rule of this block: uniform across it
-    const bool ah = MIXED ? tile_ah[rt] != 0 : ANY_HIT;
-    // MXU ray features [o, d, o x d, 1] (the TPU kernel's `feats`)
-    const float f[10] = {ox, oy, oz, dx, dy, dz, oy * dz - oz * dy,
-                         oz * dx - ox * dz, ox * dy - oy * dx, 1.0f};
+#define NW (TILE_N / 32)
+// the packed best of a ray that has no hit: larger than any hit's word
+#define PACKED_MISS 0xFF800000FFFFFFFFull
 
-    float bt = __int_as_float(0x7f800000);  // +inf
-    int bi = -1;
-    int t_hi = block_max_int(t_cap_bits(live, bt, maxt), s_red);
-    bool alive = __syncthreads_or(live) != 0;
-    const int* row = keys + (size_t)rt * n_keys;
-    int n_visits = 0;
+// (t, idx) as one word whose unsigned order is the fold's: the high
+// half an order-preserving image of t in which -0 and +0 are equal,
+// the low half idx << 1 with t's sign bit below it, so a -0 winner
+// keeps its sign.
+__device__ __forceinline__ unsigned long long pack_best(float t, int i) {
+    if (i < 0) return PACKED_MISS;
+    const unsigned b = __float_as_uint(t);
+    const unsigned hi = t == 0.0f ? 0x80000000u
+                      : (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+    return ((unsigned long long)hi << 32) | ((unsigned)i << 1) | (b >> 31);
+}
 
-    for (int k = 0; k < n_keys && alive; ++k) {
-        const int key = row[k];
-        if ((key & ~idx_mask) > t_hi) break;  // skyline: int compare
-        const int j = key & idx_mask;
-        // MXU: the tile's columns are contiguous [det | u | v | t] blocks
-        const size_t col0 = (size_t)j * COLS;
-        const size_t stride = OP == OP_MXU ? (size_t)4 * T : (size_t)T;
-        for (int e = threadIdx.x; e < ROWS * COLS; e += TILE_N) {
-            const int rr = e / COLS, cc = e - rr * COLS;
-            s_tri[rr][cc] = tris[(size_t)rr * stride + col0 + cc];
+__device__ __forceinline__ void unpack_best(unsigned long long p, float* t,
+                                            int* i) {
+    const unsigned hi = (unsigned)(p >> 32), lo = (unsigned)p;
+    if (lo == 0xFFFFFFFFu) {
+        *t = __int_as_float(0x7f800000);
+        *i = -1;
+        return;
+    }
+    const unsigned b = hi == 0x80000000u ? lo << 31
+                     : (hi & 0x80000000u) ? (hi & 0x7fffffffu) : ~hi;
+    *t = __uint_as_float(b);
+    *i = (int)(lo >> 1);
+}
+
+struct Ray {
+    float ox, oy, oz, dx, dy, dz, mint, maxt;
+    float f[10];  // MXU features [o, d, o x d, 1] (the TPU kernel's `feats`)
+};
+
+__device__ __forceinline__ Ray load_ray(const float* rays, int n, int r) {
+    Ray y;
+    y.ox = rays[0 * n + r], y.oy = rays[1 * n + r], y.oz = rays[2 * n + r];
+    y.dx = rays[3 * n + r], y.dy = rays[4 * n + r], y.dz = rays[5 * n + r];
+    y.mint = rays[6 * n + r], y.maxt = rays[7 * n + r];
+    const float f[10] = {y.ox, y.oy, y.oz, y.dx, y.dy, y.dz,
+                         y.oy * y.dz - y.oz * y.dy, y.oz * y.dx - y.ox * y.dz,
+                         y.ox * y.dy - y.oy * y.dx, 1.0f};
+#pragma unroll
+    for (int i = 0; i < 10; ++i) y.f[i] = f[i];
+    return y;
+}
+
+// Shared memory of both passes: the staging double buffer and the
+// skyline reduction's slots, two sets used in turn, so one barrier per
+// reduction suffices.
+template <int OP>
+struct Smem {
+    __align__(16) float tri[2][Op<OP>::tile];
+    int red_max[2][NW];
+    unsigned red_or[2][NW];
+};
+
+// This thread's share of the copy of tile j into dst (one commit group).
+template <int OP>
+__device__ __forceinline__ void stage(const float* tris, size_t stride,
+                                      int j, float* dst) {
+    constexpr int COLS = Op<OP>::cols, CHUNKS = COLS / 4;
+    const float* src = tris + (size_t)j * COLS;
+    for (int e = threadIdx.x; e < Op<OP>::rows * CHUNKS; e += TILE_N) {
+        const int rr = e / CHUNKS, cc = (e - rr * CHUNKS) * 4;
+        __pipeline_memcpy_async(dst + rr * COLS + cc, src + rr * stride + cc,
+                                16);
+    }
+    __pipeline_commit();
+}
+
+// The warps' partial skyline (max of t_cap bits, OR of `need`) into slot
+// set s; the caller's next __syncthreads publishes it.
+template <int OP>
+__device__ __forceinline__ void skyline_partials(Smem<OP>& sm, int s,
+                                                 bool need, float bt,
+                                                 float maxt) {
+    const int v = __reduce_max_sync(0xffffffffu, t_cap_bits(need, bt, maxt));
+    const unsigned o = __reduce_or_sync(0xffffffffu, need ? 1u : 0u);
+    if ((threadIdx.x & 31) == 0) {
+        sm.red_max[s][threadIdx.x >> 5] = v;
+        sm.red_or[s][threadIdx.x >> 5] = o;
+    }
+}
+
+// After the barrier: t_hi and whether the walk goes on (any-hit: some
+// ray still needs a hit; closest: t_hi > 0), the same in every thread.
+template <int OP>
+__device__ __forceinline__ void skyline_read(const Smem<OP>& sm, int s,
+                                             bool ah, int* t_hi,
+                                             bool* alive) {
+    int m = sm.red_max[s][0];
+    unsigned o = sm.red_or[s][0];
+#pragma unroll
+    for (int w = 1; w < NW; ++w) {
+        m = max(m, sm.red_max[s][w]);
+        o |= sm.red_or[s][w];
+    }
+    *t_hi = m;
+    *alive = ah ? o != 0 : m > 0;
+}
+
+// Does this ray still search?  (Closest: every live ray; any-hit: the
+// live rays without a hit.)
+__device__ __forceinline__ bool needs(bool live, bool ah, int bi) {
+    return live && !(ah && bi >= 0);
+}
+
+// Walks keys row[k0 .. k1) of one ray tile, at most vmax visits, from
+// each thread's best (bt, bi) and the block's skyline (t_hi, alive),
+// which it updates.  Returns the first key it did not visit; adds its
+// visits to *n_visits.  Every branch on t_hi, alive, k and the visit
+// count is uniform across the block.
+template <int OP>
+__device__ int walk(Smem<OP>& sm, const float* tris, int T, const int* row,
+                    int k0, int k1, int vmax, int idx_mask, const Ray& y,
+                    bool live, bool ah, float& bt, int& bi, int& t_hi,
+                    bool& alive, int* n_visits) {
+    const size_t stride = OP == OP_MXU ? (size_t)4 * T : (size_t)T;
+    auto passes = [&](int k) { return (row[k] & ~idx_mask) <= t_hi; };
+    int k = k0, nv = 0;
+    if (!(alive && k < k1 && vmax > 0 && passes(k))) return k;
+    stage<OP>(tris, stride, row[k] & idx_mask, sm.tri[0]);
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    for (;;) {
+        // tile row[k] has landed in buffer nv & 1; stage the next key
+        // now unless it already fails the skyline (t_hi never rises)
+        const int j = row[k] & idx_mask;
+        const bool next = k + 1 < k1 && nv + 1 < vmax && passes(k + 1);
+        if (next) {
+            stage<OP>(tris, stride, row[k + 1] & idx_mask,
+                      sm.tri[(nv + 1) & 1]);
         }
-        __syncthreads();
-        ++n_visits;
-        if (live && !(ah && bi >= 0)) {
+        const float* tile = sm.tri[nv & 1];
+        ++nv;
+        if (needs(live, ah, bi)) {
             const int base = j * FINE_T;
+            // independent pair tests interleave; the fold stays in order
+#pragma unroll 8
             for (int c = 0; c < FINE_T; ++c) {
                 bool hit;
                 float t;
                 if constexpr (OP == OP_MXU) {
-                    mxu_pair_test(&s_tri[0][0], c, f, mint, maxt, &hit, &t);
+                    mxu_pair_test(tile, c, y.f, y.mint, y.maxt, &hit, &t);
                 } else {
-                    pair_test<OP == OP_BW, FINE_T>(&s_tri[0][0], c, ox, oy,
-                                                   oz, dx, dy, dz, mint, maxt,
-                                                   &hit, &t);
+                    pair_test<OP == OP_BW, FINE_T>(tile, c, y.ox, y.oy, y.oz,
+                                                   y.dx, y.dy, y.dz, y.mint,
+                                                   y.maxt, &hit, &t);
                 }
                 if (hit && (t < bt || (t == bt && base + c < bi))) {
                     bt = t;
@@ -110,55 +241,213 @@ __global__ void resident_sweep_kernel(
                 }
             }
         }
-        if (ah) {
-            const bool need = live && bi < 0;
-            alive = __syncthreads_or(need) != 0;
-            t_hi = block_max_int(t_cap_bits(need, bt, maxt), s_red);
-        } else {
-            t_hi = block_max_int(t_cap_bits(live, bt, maxt), s_red);
-            alive = t_hi > 0;
+        // one barrier: publishes the skyline, lands the next tile and
+        // frees this one for the copy after next
+        skyline_partials(sm, nv & 1, needs(live, ah, bi), bt, y.maxt);
+        __pipeline_wait_prior(0);
+        __syncthreads();
+        skyline_read(sm, nv & 1, ah, &t_hi, &alive);
+        ++k;
+        if (!(alive && next && passes(k))) break;
+    }
+    *n_visits += nv;
+    return k;
+}
+
+// The skyline of the block's starting state (slot set 0, one barrier).
+template <int OP>
+__device__ __forceinline__ void skyline_start(Smem<OP>& sm, bool live,
+                                              bool ah, float bt, int bi,
+                                              float maxt, int* t_hi,
+                                              bool* alive) {
+    skyline_partials(sm, 0, needs(live, ah, bi), bt, maxt);
+    __syncthreads();
+    skyline_read(sm, 0, ah, t_hi, alive);
+}
+
+struct Work {
+    unsigned long long* best;  // (N,) packed best of rays in spilled tiles
+    int4* items;               // (ray tile, first key, end key, any-hit)
+    int* counters;             // [items pushed, items pulled]
+    int* pending;              // (n_rt,) items left per spilled ray tile
+};
+
+template <int OP, bool ANY_HIT, bool MIXED>
+__global__ void resident_first_pass(
+        const float* __restrict__ tris, int T, const int* __restrict__ keys,
+        int n_keys, int idx_mask, const float* __restrict__ rays, int n,
+        const int* __restrict__ tile_ah, float* __restrict__ t_out,
+        int* __restrict__ idx_out, int* __restrict__ visits, Work w) {
+    __shared__ Smem<OP> sm;
+    const int rt = blockIdx.x;
+    const int r = rt * TILE_N + threadIdx.x;
+    const Ray y = load_ray(rays, n, r);
+    const bool live = y.mint <= y.maxt;
+    // the exit rule of this block: uniform across it
+    const bool ah = MIXED ? tile_ah[rt] != 0 : ANY_HIT;
+    float bt = __int_as_float(0x7f800000);  // +inf
+    int bi = -1, t_hi, n_visits = 0;
+    bool alive;
+    skyline_start(sm, live, ah, bt, bi, y.maxt, &t_hi, &alive);
+    const int* row = keys + (size_t)rt * n_keys;
+    const int k = walk(sm, tris, T, row, 0, n_keys, RESIDENT_V, idx_mask, y,
+                       live, ah, bt, bi, t_hi, alive, &n_visits);
+    if (visits != nullptr && threadIdx.x == 0) visits[rt] = n_visits;
+    const bool spill = n_visits == RESIDENT_V && alive && k < n_keys &&
+                       (row[k] & ~idx_mask) <= t_hi;
+    if (!spill) {
+        t_out[r] = bt;
+        idx_out[r] = bi;
+        return;
+    }
+    // the keys left that pass the skyline: a prefix, since rows ascend
+    int k_end = k;
+    for (int k0 = k; k0 < n_keys; k0 += TILE_N) {
+        const int e = k0 + threadIdx.x;
+        const int c = __syncthreads_count(
+            e < n_keys && (row[e] & ~idx_mask) <= t_hi);
+        k_end += c;
+        if (c < TILE_N) break;
+    }
+    w.best[r] = pack_best(bt, bi);
+    if (threadIdx.x == 0) {
+        const int n_items = (k_end - k + RESIDENT_S - 1) / RESIDENT_S;
+        const int at = atomicAdd(&w.counters[0], n_items);
+        w.pending[rt] = n_items;
+        for (int i = 0; i < n_items; ++i) {
+            const int a = k + i * RESIDENT_S;
+            w.items[at + i] = make_int4(rt, a, min(a + RESIDENT_S, k_end),
+                                        ah ? 1 : 0);
         }
     }
-    t_out[r] = bt;
-    idx_out[r] = bi;
-    if (visits != nullptr && threadIdx.x == 0) visits[rt] = n_visits;
+}
+
+template <int OP, bool ANY_HIT, bool MIXED>
+__global__ void resident_tail_pass(
+        const float* __restrict__ tris, int T, const int* __restrict__ keys,
+        int n_keys, int idx_mask, const float* __restrict__ rays, int n,
+        float* __restrict__ t_out, int* __restrict__ idx_out,
+        int* __restrict__ visits, Work w) {
+    __shared__ Smem<OP> sm;
+    __shared__ int4 s_item;
+    __shared__ bool s_last;
+    for (;;) {
+        if (threadIdx.x == 0) {
+            const int i = atomicAdd(&w.counters[1], 1);
+            s_item = i < w.counters[0] ? w.items[i] : make_int4(-1, 0, 0, 0);
+        }
+        __syncthreads();
+        const int4 it = s_item;
+        if (it.x < 0) return;  // the list is empty
+        const int rt = it.x;
+        const int r = rt * TILE_N + threadIdx.x;
+        const Ray y = load_ray(rays, n, r);
+        const bool live = y.mint <= y.maxt;
+        // the flag travels with the item
+        const bool ah = MIXED ? it.w != 0 : ANY_HIT;
+        const unsigned long long p0 = __ldcg(&w.best[r]);
+        float bt;
+        int bi, t_hi, n_visits = 0;
+        bool alive;
+        unpack_best(p0, &bt, &bi);
+        skyline_start(sm, live, ah, bt, bi, y.maxt, &t_hi, &alive);
+        walk(sm, tris, T, keys + (size_t)rt * n_keys, it.y, it.z,
+             it.z - it.y, idx_mask, y, live, ah, bt, bi, t_hi, alive,
+             &n_visits);
+        const unsigned long long p = pack_best(bt, bi);
+        if (p < p0) atomicMin(&w.best[r], p);
+        if (visits != nullptr && threadIdx.x == 0) {
+            atomicAdd(&visits[rt], n_visits);
+        }
+        // the last item of a ray tile writes its rays' answers
+        __threadfence();
+        __syncthreads();
+        if (threadIdx.x == 0) s_last = atomicSub(&w.pending[rt], 1) == 1;
+        __syncthreads();
+        if (s_last) {
+            __threadfence();
+            unpack_best(atomicAdd(&w.best[r], 0ull), &bt, &bi);
+            t_out[r] = bt;
+            idx_out[r] = bi;
+        }
+    }
+}
+
+// Resident blocks of the tail pass: as many as the card holds at once.
+template <int OP, bool AH, bool MX>
+static int tail_grid() {
+    static int grid = 0;
+    if (grid == 0) {
+        int dev, sms, per_sm;
+        if (cudaGetDevice(&dev) != cudaSuccess ||
+            cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev) != cudaSuccess ||
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, resident_tail_pass<OP, AH, MX>, TILE_N, 0) !=
+                cudaSuccess) {
+            return 0;
+        }
+        grid = sms * (per_sm > 1 ? per_sm : 1);
+    }
+    return grid;
+}
+
+template <int OP, bool AH, bool MX>
+static int launch(const float* tris, int T, const int* keys, int n_keys,
+                  int idx_mask, const float* rays, int n, float* t_out,
+                  int* idx_out, const int* tile_ah, int* visits, Work w,
+                  cudaStream_t stream) {
+    const int n_rt = n / TILE_N;
+    cudaError_t err = cudaMemsetAsync(w.counters, 0, 2 * sizeof(int), stream);
+    if (err != cudaSuccess) return (int)err;
+    resident_first_pass<OP, AH, MX><<<n_rt, TILE_N, 0, stream>>>(
+        tris, T, keys, n_keys, idx_mask, rays, n, tile_ah, t_out, idx_out,
+        visits, w);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || n_keys <= RESIDENT_V) return (int)err;
+    // the tail pass runs whatever the first one pushed, without a host
+    // read of the count; no more blocks than items the list can hold
+    const int cap = n_rt * ((n_keys + RESIDENT_S - 1) / RESIDENT_S);
+    const int resident = tail_grid<OP, AH, MX>();
+    const int grid = resident < cap ? resident : cap;
+    if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
+    resident_tail_pass<OP, AH, MX><<<grid, TILE_N, 0, stream>>>(
+        tris, T, keys, n_keys, idx_mask, rays, n, t_out, idx_out, visits, w);
+    return (int)cudaGetLastError();
 }
 
 template <int OP>
-static void launch_op(const float* tris, int T, const int* keys, int n_keys,
-                      int idx_mask, const float* rays, int n, float* t_out,
-                      int* idx_out, int any_hit, const int* tile_ah,
-                      int* visits, cudaStream_t stream) {
-#define LAUNCH(AH, MX)                                                      \
-    resident_sweep_kernel<OP, AH, MX><<<n / TILE_N, TILE_N, 0, stream>>>(   \
-        tris, T, keys, n_keys, idx_mask, rays, n, tile_ah, t_out, idx_out,  \
-        visits)
-    if (tile_ah != nullptr) LAUNCH(false, true);
-    else if (any_hit) LAUNCH(true, false);
-    else LAUNCH(false, false);
-#undef LAUNCH
+static int launch_op(const float* tris, int T, const int* keys, int n_keys,
+                     int idx_mask, const float* rays, int n, float* t_out,
+                     int* idx_out, int any_hit, const int* tile_ah,
+                     int* visits, Work w, cudaStream_t stream) {
+#define ARGS tris, T, keys, n_keys, idx_mask, rays, n, t_out, idx_out, \
+             tile_ah, visits, w, stream
+    if (tile_ah != nullptr) return launch<OP, false, true>(ARGS);
+    if (any_hit) return launch<OP, true, false>(ARGS);
+    return launch<OP, false, false>(ARGS);
+#undef ARGS
 }
 
 // op: 0 Moller-Trumbore (9, T), 1 Baldwin-Weber (12, T), 2 MXU (16, 4T);
-// T is the triangle count in every case.
+// T is the triangle count in every case.  best: (N,) uint64; items:
+// (n_rt * ceil(n_keys / RESIDENT_S), 4) int32; counters: 2 int32;
+// pending: (n_rt,) int32; none needs initialising.
 extern "C" int resident_sweep_launch(const float* tris, int op, int T,
                                      const int* keys, int n_keys,
                                      int idx_bits, const float* rays, int n,
                                      float* t_out, int* idx_out, int any_hit,
                                      const int* tile_ah, int* visits,
+                                     unsigned long long* best, int* items,
+                                     int* counters, int* pending,
                                      cudaStream_t stream) {
     const int idx_mask = (1 << idx_bits) - 1;
-    if (n >= TILE_N) {
-        if (op == OP_BW) {
-            launch_op<OP_BW>(tris, T, keys, n_keys, idx_mask, rays, n, t_out,
-                             idx_out, any_hit, tile_ah, visits, stream);
-        } else if (op == OP_MT) {
-            launch_op<OP_MT>(tris, T, keys, n_keys, idx_mask, rays, n, t_out,
-                             idx_out, any_hit, tile_ah, visits, stream);
-        } else {
-            launch_op<OP_MXU>(tris, T, keys, n_keys, idx_mask, rays, n, t_out,
-                              idx_out, any_hit, tile_ah, visits, stream);
-        }
-    }
-    return (int)cudaGetLastError();
+    if (n < TILE_N) return (int)cudaGetLastError();
+    const Work w{best, reinterpret_cast<int4*>(items), counters, pending};
+#define ARGS tris, T, keys, n_keys, idx_mask, rays, n, t_out, idx_out, \
+             any_hit, tile_ah, visits, w, stream
+    if (op == OP_BW) return launch_op<OP_BW>(ARGS);
+    if (op == OP_MT) return launch_op<OP_MT>(ARGS);
+    return launch_op<OP_MXU>(ARGS);
+#undef ARGS
 }

@@ -1,14 +1,16 @@
 """ctypes bindings for the framework-free native runtime.
 
-The C++ source is the JAX package's `nori_tpu/native/nori_native.cpp`,
-read by path (importing anything under `nori_tpu` would import jax).
+The C++ source is the port's own copy, `nori_tpu_torch/csrc/
+nori_native.cpp`, byte for byte the JAX package's
+`nori_tpu/native/nori_native.cpp` (a test pins the two together).
 It is compiled with g++ on first use into `nori_tpu_torch/_build/`
 under a filename that embeds the source's content hash, so a stale
 binary is never loaded.  The fallback rule is the JAX package's: if
 the source is missing or the build fails, every entry point returns
-None and callers take their pure-Python path.  The BVH order, and so
-every triangle index, depends on which builder ran, so both packages
-must agree on whether the native path is active.
+None and callers take their pure-Python path.  This is the host BVH
+builder's fallback, not a device one: the BVH order, and so every
+triangle index, depends on which builder ran, so both packages must
+agree on whether the native path is active.
 """
 
 from __future__ import annotations
@@ -21,8 +23,7 @@ import subprocess
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(os.path.dirname(_HERE), "nori_tpu", "native",
-                    "nori_native.cpp")
+_SRC = os.path.join(_HERE, "csrc", "nori_native.cpp")
 _BUILD = os.path.join(_HERE, "_build")
 
 _lib = None
