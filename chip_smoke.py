@@ -29,25 +29,37 @@ its kernels:
   render against the BW render's mean radiance and rays;
 * the 2-D sweep (K6, which only this script calls in the port):
   closest and any-hit on the wavefront's rays, against its plain
-  version;
+  version (t, u and v equal, triangles except at exact ties in t), each
+  query with its visits per ray tile in quarter tiles and the work items
+  its plan left to the persistent blocks;
 * the batch driver on the ajax composition (the 541,696-triangle
   procedural stand-in for the pa2/pa5 ajax scan, streamed layout, K1,
   K3, K5): the kernels against their plain versions on the slab
   bounds and 32,768 camera and shadow rays, K5 any-hit also on one
   whole 131,072-sample whitted batch's shadow rays in the order
   `traverse.occluded` sorts them (and unsorted), each with the bound of
-  the slabs it visited, normals/whitted/path_mis
+  the slabs it needed; K5 must give the plain version's hits,
+  triangles and t bits, and each query prints its visits per ray tile in
+  quarter slabs (mean, p50, p99, max, the ray tiles above 4x the mean)
+  and its work items; normals/whitted/path_mis
   renders on the card against the CPU, and the full ajax_normals
   (768x768, 4 spp) and ajax_rough (768x768, 16 spp, whitted) renders
   through `render_to_files`, which must launch K5 and never K2;
 * sub-slab culling (config.STREAM_CULL_T = 128 on the Moller-Trumbore
   operand, K5-cull): the kernel against its plain version and against
-  K5 uncut, then ajax_normals culled against the uncut render.
+  K5 uncut, with its visits in sub-blocks and its work items, then
+  ajax_normals culled against the uncut render.
 
 Each path resets every kernel's launch count just before it runs and
 reads the counts just after.  Any failure raises and exits non-zero;
 without a CUDA device it exits non-zero before printing any result.
 Every phase prints its time.
+
+A sweep's bound counts the pair tests its inputs and its plain answer
+show to be needed (keys_needed, mt_needed: the tiles, slabs or
+sub-blocks within each ray tile's final skyline), the same whatever the
+kernel's schedule; what the kernel tested (its `visits`) is printed
+beside it.
 
 The last three lines of standard output are one JSON object with the
 kernels' checks, times and bounds, the card's name and power limit as
@@ -227,12 +239,6 @@ def sweep_visits(call, rays):
     return visits
 
 
-def visited_pairs(call, rays, group: int) -> int:
-    """Ray-triangle pairs a sweep tested on these rays: per ray tile the
-    groups of `group` triangles it visited x group x 256."""
-    return int(sweep_visits(call, rays).sum()) * group * 256
-
-
 def visit_stats(visits) -> dict:
     """Distribution of visit counts over ray tiles (idle tiles included):
     mean, p50, p99, max, and the ray tiles above 4x the mean."""
@@ -258,6 +264,108 @@ def resident_run(call, rays, n_keys: int):
     ws = sweep.resident_workspace(rays.shape[1], n_keys, rays.device)
     visits = sweep_visits(lambda v: call(v, ws), rays)
     return visits, sweep.tail_items(ws, rays.shape[1], n_keys)
+
+
+def stream_run(call, rays):
+    """One run of a streamed or 2-D sweep (K5, K5-cull, K6), given as
+    call(visits, workspace): its visits per ray tile (triangle groups
+    tested, over all its work items) and what its plan left to the
+    persistent blocks (ray tiles with work, most chunks of one, work
+    items)."""
+    from nori_tpu_torch.accel import sweep
+
+    ws = sweep.stream_workspace(rays.shape[1], rays.device)
+    visits = sweep_visits(lambda v: call(v, ws), rays)
+    return visits, sweep.stream_work(ws, rays.shape[1])
+
+
+def fmt_work(w: dict) -> str:
+    return (f"{w['items']} work items ({w['records']} ray tiles with work, "
+            f"at most {w['max_chunks']} chunks)")
+
+
+def searching_rays(rays, answer, any_hit: bool):
+    """What an exact sweep's answer says of its last state: (need,
+    useful), per ray whether it searches to the end (closest: every live
+    ray; any-hit: the live rays the answer leaves without a hit) and the
+    largest t it must search to (closest: min(t, maxt); any-hit:
+    maxt)."""
+    import torch
+
+    t, idx = answer[0], answer[1]
+    live = rays[6] <= rays[7]
+    if any_hit:
+        return live & (idx < 0), rays[7]
+    return live, torch.minimum(t, rays[7])
+
+
+def keys_needed(keys, bits: int, rays, answer, any_hit: bool,
+                  sub_boxes=None):
+    """Triangle groups per ray tile that a sweep over sorted entry keys
+    (K2, K2-mxu, K4: tiles; K5, K5-cull: slabs) must test whatever its
+    schedule, from the inputs and the answer alone: the candidates whose
+    entry bound (the key's) does not exceed the ray tile's final
+    skyline, the largest useful t among the rays that search to the
+    end; every skyline of a walk is at least that.  With sub_boxes
+    (K5-cull), of those slabs the sub-blocks that such a ray enters
+    within its useful t.  (n_rt,) int64: tiles or slabs, or
+    sub-blocks."""
+    import torch
+    from nori_tpu_torch.accel import sweep
+
+    need, useful = searching_rays(rays, answer, any_hit)
+    n_rt, n_slabs = keys.shape
+    cap = torch.where(need & (useful > 0), useful, 0.0)
+    t_hi = cap.view(torch.int32).reshape(n_rt, 256).amax(1)
+    alive = need.reshape(n_rt, 256).any(1) if any_hit else t_hi > 0
+    mask = (1 << bits) - 1
+    ent = keys & ~mask
+    slabs = (ent <= t_hi[:, None]) & (ent < 0x7F800000) & alive[:, None]
+    if sub_boxes is None:
+        return slabs.sum(1)
+    # the searching rays cut to their useful t, the others dead: K1 then
+    # gives a finite entry where one of them enters a sub-block's box
+    cut = rays.clone()
+    cut[6] = torch.where(need, rays[6], 1.0)
+    cut[7] = torch.where(need, useful, 0.0)
+    enters = torch.isfinite(sweep.entry_min(sub_boxes, cut))
+    by_slab = torch.zeros_like(slabs).scatter_(1, (keys & mask).long(), slabs)
+    n_sub = sub_boxes.shape[0] // n_slabs
+    return (by_slab.repeat_interleave(n_sub, dim=1) & enters).sum(1)
+
+
+def mt_needed(sd, rays, answer, any_hit: bool):
+    """Tiles of 512 triangles per ray tile that the culled 2-D sweep (K6)
+    must test whatever its schedule, from the inputs and the answer
+    alone: those whose entry bound does not exceed the final skyline and
+    whose box overlaps the final reach of the rays that search to the
+    end (csrc/mt_sweep.cu reach_read); every reach of a walk contains
+    that one.  (n_rt,) int64."""
+    import torch
+    from nori_tpu_torch.accel import sweep
+
+    n_rt = rays.shape[1] // 256
+    tb = sweep.coarse_bounds(sd.tri_tile_bounds,
+                             sd.tri_packed.shape[1] // sweep.TILE_T)
+    need, useful = searching_rays(rays, answer, any_hit)
+    o, d = rays[0:3], rays[3:6]
+    centre, radius = sd.scene_bounds[0, 0:3], sd.scene_bounds[0, 3]
+    far = torch.sqrt(((o - centre[:, None]) ** 2).sum(0)) + radius
+
+    def per_tile(x, fill, red):
+        return red(torch.where(need, x, fill).reshape(-1, n_rt, 256), dim=-1)
+
+    t_hi = per_tile(torch.minimum(useful, far), 0.0,
+                    torch.amax)[0].clamp_min(0.0)
+    lo = (per_tile(o, 3e37, torch.amin)
+          + t_hi * per_tile(d, 0.0, torch.amin).clamp_max(0.0))
+    hi = (per_tile(o, -3e37, torch.amax)
+          + t_hi * per_tile(d, 0.0, torch.amax).clamp_min(0.0))
+    overlap = ((hi.T[:, None, :] >= tb[None, :, 0:3])
+               & (lo.T[:, None, :] <= tb[None, :, 3:6])).all(-1)
+    entry = sweep.entry_min(tb, rays)
+    searching = need.reshape(n_rt, 256).any(1)
+    return ((entry <= t_hi[:, None]) & overlap & searching[:, None]).sum(1)
 
 
 def time_ms(fn, reps: int = 3) -> float:
@@ -409,17 +517,24 @@ def check_kernels(sd, rays, shadow) -> dict:
             lambda v, ws: sweep.resident_sweep(op, keys, bits, r, any_hit,
                                                visits=v, workspace=ws),
             r, n_tt)
-        pairs = int(visits.sum()) * sweep.FINE_T * 256
+        # the bound counts the tiles the answer shows to be needed, not
+        # the ones this run's schedule happened to test
+        pairs = int(keys_needed(keys, bits, r, (t_p, i_p), any_hit).sum()) * (
+            sweep.FINE_T * 256)
+        tested = int(visits.sum()) * sweep.FINE_T * 256
         timing[label] = dict(
             ms=time_ms(lambda: sweep.resident_sweep(op, keys, bits, r,
                                                     any_hit)),
             plain_ms=time_ms(lambda: sweep.resident_sweep_plain(op, r,
                                                                 any_hit), 1),
             pairs=pairs, tiles_per_ray_tile=pairs / 128 / n,
+            pairs_tested=tested, tested_per_ray_tile=tested / 128 / n,
             visits=visit_stats(visits), tail_items=items)
         log(f"K2 resident_sweep {label}: {int(hit_k.sum())} hits agree; "
             f"{timing[label]['ms']:.3f} ms vs plain "
             f"{timing[label]['plain_ms']:.3f} ms; "
+            f"{pairs / 128 / n:.2f} tiles needed per ray tile, "
+            f"{tested / 128 / n:.2f} tested; "
             f"{fmt_stats(timing[label]['visits'])}; {items} tail items")
     bw = timing["bw closest"]
     records["resident_sweep"] = record(
@@ -483,7 +598,10 @@ def check_merged_mxu_k6(sd, rays, shadow) -> dict:
     visits, items = resident_run(lambda v, ws: sweep.resident_sweep_mixed(
         sd.tri_bw, keys, bits, both, flags, visits=v, workspace=ws), both,
         n_tt)
-    pairs = int(visits.sum()) * sweep.FINE_T * 256
+    needed = (keys_needed(kc, bc, rays, (t_p[:n], i_p[:n]), False).sum()
+              + keys_needed(ks, bs, shadow, (None, i_p[n:]), True).sum())
+    pairs = int(needed) * sweep.FINE_T * 256
+    tested = int(visits.sum()) * sweep.FINE_T * 256
     ms = time_ms(lambda: sweep.resident_sweep_mixed(sd.tri_bw, keys, bits,
                                                     both, flags))
     ms_two = time_ms(lambda: (
@@ -495,11 +613,14 @@ def check_merged_mxu_k6(sd, rays, shadow) -> dict:
         err, float(PAIR_OPS["bw"]) * pairs,
         sweep_bytes(12, T, n2, n_tt) + 4.0 * (n2 // 256),
         two_k2_ms=ms_two, tiles_per_ray_tile=pairs / 128 / n2,
+        pairs_tested=tested, tested_per_ray_tile=tested / 128 / n2,
         visits=visit_stats(visits), tail_items=items)
     log(f"K4 resident_sweep_mixed ({n} closest + {n} shadow rays): equal to "
         f"its plain version and to the two K2 launches; {ms:.3f} ms vs the "
         f"two K2 launches {ms_two:.3f} ms vs plain "
         f"{records['resident_sweep_mixed']['plain_ms']:.3f} ms; "
+        f"{pairs / 128 / n2:.2f} tiles needed per ray tile, "
+        f"{tested / 128 / n2:.2f} tested; "
         f"{fmt_stats(records['resident_sweep_mixed']['visits'])}; "
         f"{items} tail items")
 
@@ -525,7 +646,9 @@ def check_merged_mxu_k6(sd, rays, shadow) -> dict:
                              "from its plain version")
     visits, items = resident_run(lambda v, ws: sweep.resident_sweep_mxu(
         sd.tri_mxu, keys, bits, rays, visits=v, workspace=ws), rays, n_tt)
-    pairs = int(visits.sum()) * sweep.FINE_T * 256
+    pairs = int(keys_needed(keys, bits, rays, (t_p, i_p), False).sum()) * (
+        sweep.FINE_T * 256)
+    tested = int(visits.sum()) * sweep.FINE_T * 256
     records["resident_sweep_mxu"] = record(
         "resident_sweep_mxu",
         time_ms(lambda: sweep.resident_sweep_mxu(sd.tri_mxu, keys, bits,
@@ -533,13 +656,16 @@ def check_merged_mxu_k6(sd, rays, shadow) -> dict:
         time_ms(lambda: sweep.resident_sweep_mxu_plain(sd.tri_mxu, rays), 1),
         0.0, float(PAIR_OPS["mxu"]) * pairs, sweep_bytes(40, T, n, n_tt),
         hit_mask_agreement_with_bw=agree, same_triangle_as_bw=same_tri,
-        tiles_per_ray_tile=pairs / 128 / n, visits=visit_stats(visits),
+        tiles_per_ray_tile=pairs / 128 / n, pairs_tested=tested,
+        tested_per_ray_tile=tested / 128 / n, visits=visit_stats(visits),
         tail_items=items)
     log(f"K2-mxu resident_sweep_mxu: exact against its plain version "
         f"(closest and any-hit); hit masks agree with BW K2 on {agree:.6f}, "
         f"triangles on {same_tri:.6f} of rays; "
         f"{records['resident_sweep_mxu']['ms']:.3f} ms vs plain "
         f"{records['resident_sweep_mxu']['plain_ms']:.3f} ms; "
+        f"{pairs / 128 / n:.2f} tiles needed per ray tile, "
+        f"{tested / 128 / n:.2f} tested; "
         f"{fmt_stats(records['resident_sweep_mxu']['visits'])}; "
         f"{items} tail items")
     records["mt_sweep"] = check_k6(sd, rays, shadow)
@@ -591,18 +717,38 @@ def check_k6(sd, rays, shadow) -> dict:
                 and torch.equal(v_k[same], v_p[same])):
             raise AssertionError(f"mt_sweep {label}: u or v differs from "
                                  "its plain version")
-    pairs = visited_pairs(lambda v: sweep.mt_sweep(*args, rays, visits=v),
-                          rays, sweep.TILE_T)
+    timing = {}
+    for label, r, any_hit in (("closest", rays, False),
+                              ("any-hit", shadow, True)):
+        visits, work = stream_run(
+            lambda v, ws: sweep.mt_sweep(*args, r, any_hit=any_hit, visits=v,
+                                         workspace=ws), r)
+        # the bound counts the tiles the answer shows to be needed, not
+        # the ones this run's schedule happened to test
+        pairs = int(mt_needed(sd, r, sweep.mt_sweep_plain(sd.tri_packed, r),
+                              any_hit).sum()) * sweep.TILE_T * 256
+        tested = int(visits.sum()) * sweep.TILE_U * 256
+        timing[label] = dict(
+            ms=time_ms(lambda: sweep.mt_sweep(*args, r, any_hit=any_hit)),
+            pairs=pairs, tiles_per_ray_tile=pairs / 512 / n,
+            pairs_tested=tested, tested_per_ray_tile=tested / 512 / n,
+            visits=visit_stats(visits), work=work,
+            **bound(float(PAIR_OPS["mt"]) * pairs + float(SLAB_OPS) * n * n_tt,
+                    4.0 * (9 * T + 8 * n + 8 * n_tt + 4 * n)))
+        log(f"K6 mt_sweep {label}: {timing[label]['ms']:.3f} ms (with its K1 "
+            f"and argsort), bound {timing[label]['bound_ms']:.3f} ms; "
+            f"{pairs / 512 / n:.2f} tiles needed per ray tile, "
+            f"{tested / 512 / n:.2f} tested; quarter tiles, "
+            f"{fmt_stats(timing[label]['visits'])}; {fmt_work(work)}")
+    cl = timing["closest"]
     rec = record(
-        "mt_sweep", time_ms(lambda: sweep.mt_sweep(*args, rays)),
+        "mt_sweep", cl["ms"],
         time_ms(lambda: sweep.mt_sweep_plain(sd.tri_packed, rays), 1), 0.0,
-        float(PAIR_OPS["mt"]) * pairs + float(SLAB_OPS) * n * n_tt,
-        4.0 * (9 * T + 8 * n + 8 * n_tt + 4 * n),
-        tiles_per_ray_tile=pairs / 512 / n)
+        cl["ops"], cl["bytes"], tiles_per_ray_tile=cl["tiles_per_ray_tile"],
+        by_query=timing)
     log(f"K6 mt_sweep (culled, {n_tt} tiles of 512): closest t, u, v equal "
-        f"to its plain version, any-hit masks equal; {rec['ms']:.3f} ms (with "
-        f"its K1 and argsort) vs plain {rec['plain_ms']:.3f} ms; "
-        f"{pairs / 512 / n:.2f} tiles tested per ray tile")
+        f"to its plain version, any-hit masks equal; {rec['ms']:.3f} ms vs "
+        f"plain {rec['plain_ms']:.3f} ms")
     return rec
 
 
@@ -838,10 +984,12 @@ def ajax_rays(scene, sd, dev, q):
     return rays, shadow
 
 
-def compare_sweep(label: str, got, ref, any_hit: bool) -> float:
+def compare_sweep(label: str, got, ref, any_hit: bool,
+                  bits: bool = False) -> float:
     """Equal hit masks, and for closest hits t within rtol 1e-6 and
     equal triangles (the kernels round as their plain versions and
-    break ties alike); returns max |dt|."""
+    break ties alike), with `bits` also equal t bits (-0 included);
+    returns max |dt|."""
     import torch
 
     (t_k, i_k), (t_p, i_p) = got, ref
@@ -862,6 +1010,12 @@ def compare_sweep(label: str, got, ref, any_hit: bool) -> float:
     if n_idx:
         raise AssertionError(f"{label}: {n_idx} closest-hit triangles differ "
                              "from the plain version")
+    if bits:
+        n_bits = int((t_k.view(torch.int32) != t_p.view(torch.int32))[
+            both].sum())
+        if n_bits:
+            raise AssertionError(f"{label}: t bits differ from the plain "
+                                 f"version on {n_bits} rays")
     return float(dt.max()) if dt.numel() else 0.0
 
 
@@ -930,25 +1084,38 @@ def check_ajax_kernels(dev) -> dict:
         op = sd.tri_bw if use_bw else sd.tri_packed
         keys, bits = sweep.ray_tile_entry_keys(tb, r)
 
-        def kern(v=None):
+        def kern(v=None, ws=None):
             return sweep.stream_sweep(op, keys, bits, r, any_hit, use_bw,
-                                      visits=v)
+                                      visits=v, workspace=ws)
 
         def plain():
             return sweep.stream_sweep_plain(op, r, any_hit, use_bw)
 
-        got = kern()
+        got, ref = kern(), plain()
         if not use_bw:
             uncut[any_hit] = got
-        err = max(err, compare_sweep(f"stream_sweep {label}", got, plain(),
-                                     any_hit))
-        pairs = visited_pairs(kern, r, sweep.STREAM_T)
-        timing[label] = dict(ms=time_ms(kern), plain_ms=time_ms(plain, 1),
-                             pairs=pairs)
+        err = max(err, compare_sweep(f"stream_sweep {label}", got, ref,
+                                     any_hit, bits=True))
+        visits, work = stream_run(kern, r)
+        # the bound counts the slabs the answer shows to be needed, not
+        # the ones this run's schedule happened to test
+        pairs = int(keys_needed(keys, bits, r, ref, any_hit).sum()) * (
+            sweep.STREAM_T * 256)
+        tested = int(visits.sum()) * sweep.stream_visit_group() * 256
+        timing[label] = dict(
+            ms=time_ms(kern), plain_ms=time_ms(plain, 1), pairs=pairs,
+            slabs_per_ray_tile=pairs / 512 / n, pairs_tested=tested,
+            tested_per_ray_tile=tested / 512 / n, visits=visit_stats(visits),
+            work=work, **bound(float(PAIR_OPS["bw" if use_bw else "mt"])
+                               * pairs,
+                               sweep_bytes(12 if use_bw else 9, T, n, n_tt)))
         log(f"K5 stream_sweep {label}: {int((got[1] >= 0).sum())} hits "
-            f"agree; {timing[label]['ms']:.3f} ms vs plain "
-            f"{timing[label]['plain_ms']:.3f} ms; "
-            f"{pairs / 512 / n:.2f} slabs visited per ray tile")
+            f"agree, t bits equal; {timing[label]['ms']:.3f} ms vs plain "
+            f"{timing[label]['plain_ms']:.3f} ms, bound "
+            f"{timing[label]['bound_ms']:.3f} ms; "
+            f"{pairs / 512 / n:.2f} slabs needed per ray tile, "
+            f"{tested / 512 / n:.2f} tested; quarter slabs, "
+            f"{fmt_stats(timing[label]['visits'])}; {fmt_work(work)}")
     timing.update(check_sorted_any_hit(sd, dev))
     bw = timing["bw closest"]
     out["stream_sweep"] = record(
@@ -959,42 +1126,55 @@ def check_ajax_kernels(dev) -> dict:
     # K5-cull: the MT operand in sub-blocks of CULL_T, against its plain
     # version and against K5 uncut, exactly
     err, timing = 0.0, {}
+    cull_bytes = sweep_bytes(9, T, n, n_tt) + 4.0 * 8 * (T // CULL_T)
     for label, r, any_hit in (("mt closest", rays, False),
                               ("mt any-hit", shadow, True)):
         keys, bits = sweep.ray_tile_entry_keys(tb, r)
 
-        def kern(v=None):
+        def kern(v=None, ws=None):
             return sweep.stream_sweep_culled(sd.tri_packed, keys, bits, r,
-                                             any_hit, CULL_T, visits=v)
+                                             any_hit, CULL_T, visits=v,
+                                             workspace=ws)
 
         def plain():
             return sweep.stream_sweep_plain(sd.tri_packed, r, any_hit, False)
 
-        got = kern()
+        got, ref = kern(), plain()
         err = max(err, compare_sweep(f"stream_sweep_culled {label}", got,
-                                     plain(), any_hit))
+                                     ref, any_hit, bits=True))
         (t_c, i_c), (t_u, i_u) = got, uncut[any_hit]
         same = (torch.equal(i_c >= 0, i_u >= 0) if any_hit else
                 torch.equal(i_c, i_u) and torch.equal(t_c, t_u))
         if not same:
             raise AssertionError(f"stream_sweep_culled {label}: differs from "
                                  "K5 uncut")
-        pairs = visited_pairs(kern, r, CULL_T)
+        visits, work = stream_run(kern, r)
+        group = sweep.stream_visit_group(CULL_T)
+        # needed: the sub-blocks of the needed slabs that a ray searching
+        # to the end enters in time
+        pairs = int(keys_needed(
+            keys, bits, r, ref, any_hit,
+            sweep.sub_block_boxes(sd.tri_packed, CULL_T)).sum()) * CULL_T * 256
+        tested = int(visits.sum()) * group * 256
         timing[label] = dict(
             ms=time_ms(kern), plain_ms=time_ms(plain, 1), pairs=pairs,
-            uncut_ms=out["stream_sweep"]["by_query"][label]["ms"])
+            pairs_tested=tested,
+            uncut_ms=out["stream_sweep"]["by_query"][label]["ms"],
+            visits=visit_stats(visits), work=work,
+            **bound(float(PAIR_OPS["mt"]) * pairs, cull_bytes))
         log(f"K5-cull stream_sweep_culled {label}: equal to its plain "
-            f"version and to K5 uncut; {timing[label]['ms']:.3f} ms vs plain "
+            f"version (t bits too) and to K5 uncut; "
+            f"{timing[label]['ms']:.3f} ms vs plain "
             f"{timing[label]['plain_ms']:.3f} ms, K5 uncut "
-            f"{timing[label]['uncut_ms']:.3f} ms; "
-            f"{pairs / CULL_T / n:.2f} sub-blocks of {CULL_T} tested per "
-            "ray tile")
+            f"{timing[label]['uncut_ms']:.3f} ms, bound "
+            f"{timing[label]['bound_ms']:.3f} ms; sub-blocks of {group}: "
+            f"{pairs / group / n:.2f} needed per ray tile, "
+            f"{tested / group / n:.2f} tested; "
+            f"{fmt_stats(timing[label]['visits'])}; {fmt_work(work)}")
     mt = timing["mt closest"]
     out["stream_sweep_culled"] = record(
         "stream_sweep_culled", mt["ms"], mt["plain_ms"], err,
-        float(PAIR_OPS["mt"]) * mt["pairs"],
-        sweep_bytes(9, T, n, n_tt) + 4.0 * 8 * (T // CULL_T),
-        by_query=timing)
+        float(PAIR_OPS["mt"]) * mt["pairs"], cull_bytes, by_query=timing)
     return out
 
 
@@ -1019,13 +1199,13 @@ def check_sorted_any_hit(sd, dev):
     keys, bits = sweep.ray_tile_entry_keys(sd.tri_tile_bounds, srt)
     keys_u, bits_u = sweep.ray_tile_entry_keys(sd.tri_tile_bounds, shadow)
 
-    def kern(v=None):
+    def kern(v=None, ws=None):
         return sweep.stream_sweep(sd.tri_bw, keys, bits, srt, True, True,
-                                  visits=v)
+                                  visits=v, workspace=ws)
 
-    def kern_unsorted(v=None):
+    def kern_unsorted(v=None, ws=None):
         return sweep.stream_sweep(sd.tri_bw, keys_u, bits_u, shadow, True,
-                                  True, visits=v)
+                                  True, visits=v, workspace=ws)
 
     _, idx = kern()
     hit_k = torch.empty_like(idx, dtype=torch.bool)
@@ -1054,17 +1234,30 @@ def check_sorted_any_hit(sd, dev):
     ms_u = time_ms(kern_unsorted)
     sort_ms = time_ms(
         lambda: shadow[:, traverse.shadow_order(sd, shadow)].contiguous())
-    # bounds as check_ajax_kernels' rows: the pairs each order's visits
-    # needed x 40 ops (BW), every input byte once
+    # bounds as check_ajax_kernels' rows: the pairs each order of the
+    # rays needs (keys_needed) x 40 ops (BW), every input byte once
     n, T = DEFAULT_BATCH, sd.tri_bw.shape[1]
     nbytes = sweep_bytes(12, T, n, sd.tri_tile_bounds.shape[0])
+    ref_s = (None, torch.where(hit_p, 0, -1)[perm])
+    ref_u = (None, torch.where(hit_p, 0, -1))
     out = {}
-    for label, fn, t in (("bw any-hit sorted", kern, ms),
-                         ("bw any-hit unsorted", kern_unsorted, ms_u)):
-        pairs = visited_pairs(fn, shadow, sweep.STREAM_T)
+    for label, fn, t, kb, r, ref in (
+            ("bw any-hit sorted", kern, ms, (keys, bits), srt, ref_s),
+            ("bw any-hit unsorted", kern_unsorted, ms_u, (keys_u, bits_u),
+             shadow, ref_u)):
+        visits, work = stream_run(fn, r)
+        pairs = int(keys_needed(*kb, r, ref, True).sum()) * (
+            sweep.STREAM_T * 256)
+        tested = int(visits.sum()) * sweep.stream_visit_group() * 256
         out[label] = dict(ms=t, plain_ms=plain_ms, pairs=pairs,
                           slabs_per_ray_tile=pairs / 512 / n,
+                          pairs_tested=tested,
+                          tested_per_ray_tile=tested / 512 / n,
+                          visits=visit_stats(visits), work=work,
                           **bound(float(PAIR_OPS["bw"]) * pairs, nbytes))
+        log(f"K5 stream_sweep {label}: {pairs / 512 / n:.2f} slabs needed "
+            f"per ray tile, {tested / 512 / n:.2f} tested; quarter slabs, "
+            f"{fmt_stats(out[label]['visits'])}; {fmt_work(work)}")
     out["bw any-hit sorted"]["sort_ms"] = sort_ms
     log(f"K5 stream_sweep bw any-hit sorted (batch {AJAX_SORTED_BATCH}, "
         f"{DEFAULT_BATCH} rays, {int((shadow[6] <= shadow[7]).sum())} live): "
@@ -1194,12 +1387,13 @@ def ajax_cull_renders(dev) -> dict:
 
 def _kernel_group(name: str) -> str:
     """Group of a device operation in the whitted batch profile."""
-    m = re.search(r"stream_sweep_kernel<(\w+), (\w+)>", name)
+    m = re.search(r"stream_sweep_items<(\w+), (\w+), (\w+)>", name)
     if m:
         return "K5 stream_sweep, " + (
             "any hit" if m.group(2) == "true" else "closest hit")
     low = name.lower()
-    for key, group in (("entry_min_kernel", "K1 entry_min"),
+    for key, group in (("stream_plan", "K5 stream_sweep, plan"),
+                       ("entry_min_kernel", "K1 entry_min"),
                        ("lane_keys_kernel", "K3 lane_keys"),
                        ("resident_sweep_kernel", "K2 resident_sweep"),
                        ("sort", "sorts (entry-key rows, shadow-ray order)"),

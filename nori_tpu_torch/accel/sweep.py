@@ -23,7 +23,8 @@ a run's data needs, for the kernels' bounds); the plain versions sweep
 densely and leave it untouched.  The resident sweeps (K2, K2-mxu, K4)
 allocate their scratch per call, or take it as `workspace`
 (resident_workspace), after which tail_items reads how much work the
-first pass left to the tail pass.
+first pass left to the tail pass.  So do the streamed and the 2-D sweeps
+(K5, K5-cull, K6: stream_workspace, stream_work).
 
 Layouts are the JAX package's: rays (8, N) [o | d | mint | maxt] with
 N a multiple of TILE_N (pack_rays pads), tile bounds (n_tt, 8)
@@ -44,6 +45,16 @@ TILE_N = 256   # rays per ray tile
 FINE_T = 128   # triangles per triangle tile
 STREAM_T = 512  # triangles per slab of the streamed sweep
 TILE_T = 512   # triangles per tile of the 2-D sweep (K6)
+#: triangles the streamed and the 2-D sweep stage and test at a time: a
+#: quarter of a slab or tile, one work item of a chunk (csrc/common.cuh
+#: STREAM_U, TILE_U)
+STREAM_U = 128
+TILE_U = 128
+#: keys of a row per chunk of the streamed sweep's work items, and
+#: positions of a visit order per chunk of the 2-D sweep's
+#: (csrc/common.cuh STREAM_S, MT_S)
+STREAM_S = 2
+MT_S = 4
 #: ray-triangle pairs per chunk of the dense plain sweep (bounds its
 #: temporaries to 16 MB each)
 _PLAIN_PAIRS = 1 << 22
@@ -624,11 +635,72 @@ def _check_stream(tris_op, keys, idx_bits: int, rays):
                 "slabs")
 
 
+def _stream_layout(n: int):
+    """int32 words of the streamed and 2-D sweeps' scratch for n rays,
+    and the word offsets of its records and counters."""
+    n_rt = n // TILE_N
+    return 2 * n + 4 * n_rt + 4 + 2 * n_rt, 2 * n, 2 * n + 4 * n_rt
+
+
+def stream_workspace(n: int, device):
+    """Scratch of the streamed sweep (K5, K5-cull) and the 2-D sweep
+    (K6) for n rays, one int32 tensor: the per-ray packed best (n
+    int64), one record of 4 int32 per ray tile (ray tile, first key or
+    position, end, chunks), the counters (records, item numbers pulled,
+    most chunks of a record; one word of padding), and per ray tile a
+    pending count and a published skyline.  The kernel initialises what
+    it reads."""
+    return torch.empty((_stream_layout(n)[0],), dtype=torch.int32,
+                       device=device)
+
+
+def stream_work(workspace, n: int):
+    """What the last streamed or 2-D sweep run on `workspace` (for n
+    rays) planned: the ray tiles with work, the most chunks one of them
+    has, and the work items (one per chunk and quarter; both kernels cut
+    a slab or tile in STREAM_T / STREAM_U = TILE_T / TILE_U quarters);
+    reads the device."""
+    _, rec, cnt = _stream_layout(n)
+    records = int(workspace[cnt])
+    chunks = workspace[rec:rec + 4 * records].reshape(records, 4)[:, 3]
+    return dict(records=records, max_chunks=int(workspace[cnt + 2]),
+                items=int(chunks.sum()) * (STREAM_T // STREAM_U))
+
+
+def _stream_ptrs(workspace, n: int, device):
+    """(workspace kept alive, pointers of best, records, counters,
+    pending) for a launch on n rays; allocates the scratch if none is
+    given."""
+    words, rec, cnt = _stream_layout(n)
+    if workspace is None:
+        workspace = stream_workspace(n, device)
+    _check(workspace, "workspace", torch.int32, 1, device)
+    if workspace.shape[0] < words:
+        raise ValueError(f"workspace: {workspace.shape[0]} int32, expected "
+                         f"at least {words}")
+    base = workspace.data_ptr()
+    # the packed bests take 64-bit atomics and the records 16-byte loads;
+    # n is a multiple of TILE_N, so the records are aligned if the base is
+    if base % 16:
+        raise ValueError("workspace: expected a 16-byte aligned address, as "
+                         "stream_workspace gives")
+    return workspace, (base, base + 4 * rec, base + 4 * cnt,
+                       base + 4 * (cnt + 4))
+
+
+def stream_visit_group(cull_t: int = 0) -> int:
+    """Triangles per visit that the streamed sweep counts in `visits`:
+    a quarter slab, or with sub-slab culling a sub-block of cull_t
+    triangles if that is smaller."""
+    return min(cull_t, STREAM_U) if cull_sub_blocks(cull_t) > 1 else STREAM_U
+
+
 def _stream_launch(tris_op, keys, idx_bits: int, rays, any_hit: bool,
-                   use_bw: bool, n_sub: int, sub_boxes, visits):
+                   use_bw: bool, n_sub: int, sub_boxes, visits, workspace):
     if tris_op.data_ptr() % 16:
         raise ValueError("tris_op: the slab copies need 16-byte alignment")
     n = rays.shape[1]
+    workspace, ptrs = _stream_ptrs(workspace, n, rays.device)
     t = torch.empty((n,), dtype=torch.float32, device=rays.device)
     idx = torch.empty((n,), dtype=torch.int32, device=rays.device)
     lib = cuda_build.load()
@@ -637,30 +709,41 @@ def _stream_launch(tris_op, keys, idx_bits: int, rays, any_hit: bool,
         keys.shape[1], idx_bits, rays.data_ptr(), n, t.data_ptr(),
         idx.data_ptr(), int(any_hit), n_sub,
         0 if sub_boxes is None else sub_boxes.data_ptr(),
-        _visits_ptr(visits, n // TILE_N, rays.device), _stream(rays.device))
+        _visits_ptr(visits, n // TILE_N, rays.device), *ptrs,
+        _stream(rays.device))
+    # a workspace allocated here may be freed on return: the caching
+    # allocator hands it out again only to work queued after the sweep
+    # on the same stream
     return t, idx, err
 
 
 def stream_sweep(tris_op, keys, idx_bits: int, rays, any_hit: bool = False,
-                 use_bw: bool = True, visits=None):
+                 use_bw: bool = True, visits=None, workspace=None):
     """K5 wrapper: (t (N,) f32, idx (N,) int32) for (8, N) rays against
     the (16, T) streamed operand, walking `keys` from
     ray_tile_entry_keys on the (T / STREAM_T, 8) slab bounds.  use_bw
     says which rows the operand holds (with 16 rows its shape cannot).
 
     Kernel: csrc/stream_sweep.cu, replacing pallas_mt.py
-    `_mt_stream_kernel`.  Bound on the H100 by the pair tests over
-    each visited 512-triangle slab and the slab copies (which of the
-    two dominates is not settled); one block per ray tile stages the
-    slabs' read rows through a cp.async double buffer, the copy of the
-    next slab overlapping the test of this one.  The plain version (CPU
-    tensors) sweeps densely and does not read the keys.
+    `_mt_stream_kernel`.  Bound on the H100 by the pair tests'
+    arithmetic: the operand stays in L2 and a staged quarter slab is
+    6 KB.  Two launches without a host read between them: a plan cuts
+    each ray tile's candidate keys into chunks of STREAM_S keys, and
+    persistent blocks pull work items, one per chunk and quarter of the
+    slabs (STREAM_U triangles), chunk by chunk over all ray tiles, so a
+    row's keys stay nearly in order (a closest walk prunes as it goes)
+    while every row is worked on at once.  An item starts from its
+    rays' packed best, stages its quarters through a cp.async double
+    buffer, and folds its hits back with a 64-bit atomic minimum, which
+    is exact in any order.  `visits` counts quarter slabs
+    (stream_visit_group).  The plain version (CPU tensors) sweeps
+    densely and does not read the keys.
     """
     _check_stream(tris_op, keys, idx_bits, rays)
     if rays.device.type == "cpu":
         return stream_sweep_plain(tris_op, rays, any_hit, use_bw)
     t, idx, err = _stream_launch(tris_op, keys, idx_bits, rays, any_hit,
-                                 use_bw, 1, None, visits)
+                                 use_bw, 1, None, visits, workspace)
     stream_sweep.launches += 1
     _raise_on(err, "stream_sweep")
     return t, idx
@@ -699,17 +782,20 @@ def sub_block_boxes(tris_op, cull_t: int):
 
 def stream_sweep_culled(tris_op, keys, idx_bits: int, rays,
                         any_hit: bool = False, cull_t: int = 128,
-                        visits=None):
+                        visits=None, workspace=None):
     """K5-cull wrapper: stream_sweep on the 16-row Moller-Trumbore
     operand, each slab tested in sub-blocks of cull_t triangles (a
     divisor of STREAM_T smaller than it) gated by their boxes.
 
     Kernel: csrc/stream_sweep.cu with n_sub = STREAM_T / cull_t,
-    replacing pallas_mt.py `_mt_stream_kernel` with `n_sub > 1`.  A
-    landed slab's sub-block is tested only if a ray still searching
-    enters its box before its useful t (one slab test per thread and a
-    __syncthreads_or); `visits` then counts sub-blocks.  Culling is
-    exact, so the plain version is the dense sweep.
+    replacing pallas_mt.py `_mt_stream_kernel` with `n_sub > 1`, in
+    K5's two launches.  A landed quarter slab's sub-block is tested only
+    if a ray of the block, still searching, enters its box before its
+    useful t (one slab test per thread and a __syncthreads_or); the
+    useful t starts from the ray's packed best, an upper bound of the
+    final one, so no winner is skipped.  `visits` then counts sub-blocks
+    (stream_visit_group(cull_t) triangles each).  Culling is exact, so
+    the plain version is the dense sweep.
     """
     _check_stream(tris_op, keys, idx_bits, rays)
     n_sub = cull_sub_blocks(cull_t)
@@ -720,7 +806,8 @@ def stream_sweep_culled(tris_op, keys, idx_bits: int, rays,
         return stream_sweep_plain(tris_op, rays, any_hit, use_bw=False)
     t, idx, err = _stream_launch(tris_op, keys, idx_bits, rays, any_hit,
                                  False, n_sub,
-                                 sub_block_boxes(tris_op, cull_t), visits)
+                                 sub_block_boxes(tris_op, cull_t), visits,
+                                 workspace)
     stream_sweep_culled.launches += 1
     _raise_on(err, "stream_sweep_culled")
     return t, idx
@@ -759,7 +846,8 @@ def mt_sweep_plain(tris_packed, rays, any_hit: bool = False):
 
 
 def mt_sweep(tris_packed, tile_bounds, scene_bounds, rays,
-             any_hit: bool = False, cull: bool = True, visits=None):
+             any_hit: bool = False, cull: bool = True, visits=None,
+             workspace=None):
     """K6 wrapper: (t, idx, u, v), each (N,), for (8, N) rays against
     the (9, T) soup, T a multiple of TILE_T.  tile_bounds are the
     (T / FINE_T, 8) tile boxes (coarsened here to TILE_T tiles),
@@ -768,12 +856,20 @@ def mt_sweep(tris_packed, tile_bounds, scene_bounds, rays,
     Kernel: csrc/mt_sweep.cu, replacing pallas_mt.py `_mt_kernel`
     (`mt_sweep`).  The visit order of each ray tile is its tiles sorted
     by entry bound (K1 on the coarsened bounds, then a stable argsort).
-    One block per ray tile walks all tiles in that order, culls a tile
-    by the ray tile's reach and the skyline, and stages a passing
-    tile's 9 x 512 soup (18 KB) in shared memory.  Within a tile ties
-    keep the lowest index, across tiles the earlier visit (the TPU
-    kernel's fold), so idx can differ from the dense plain version only
-    at exact ties in t.
+    Bound on the H100 by the pair tests' arithmetic.  K5's two
+    launches: a plan cuts the positions of each order row that pass the
+    first skyline into chunks of MT_S, and persistent blocks pull work
+    items, one per chunk and quarter of the tiles (TILE_U triangles).
+    An item reduces its rays' reach once and after each quarter it
+    tests; tiles outside the reach or beyond the skyline cost a few
+    compares and no barrier, and the scan stops at the first entry bound
+    beyond the skyline.  The fold goes through the packed best ordered
+    by t, the tile's position in the order, the index in the tile, and
+    the last item of a ray tile recomputes the winner's u and v with the
+    same pair test.  Within a tile ties keep the lowest index, across
+    tiles the tile earlier in the order (the TPU kernel's fold), so idx
+    can differ from the dense plain version only at exact ties in t.
+    `visits` counts quarter tiles; the workspace is stream_workspace's.
     """
     _check_rays(rays)
     _check(tris_packed, "tris_packed", torch.float32, 2, rays.device)
@@ -785,11 +881,17 @@ def mt_sweep(tris_packed, tile_bounds, scene_bounds, rays,
         raise ValueError(f"tris_packed: expected (9, T) with T % {TILE_T} "
                          f"== 0, got {tuple(tris_packed.shape)}")
     n_tt = T // TILE_T
+    if n_tt > 1 << 21:
+        raise ValueError(f"tris_packed: {n_tt} tiles, the packed best "
+                         f"holds {1 << 21}")
     if tile_bounds.shape[0] % n_tt or tile_bounds.shape[1] != 8:
         raise ValueError(f"tile_bounds: expected (k * {n_tt}, 8), got "
                          f"{tuple(tile_bounds.shape)}")
     if rays.device.type == "cpu":
         return mt_sweep_plain(tris_packed, rays, any_hit)
+    if tris_packed.data_ptr() % 16:
+        raise ValueError("tris_packed: the tile copies need 16-byte "
+                         "alignment")
     n_rt = n // TILE_N
     tb = coarse_bounds(tile_bounds, n_tt)
     if cull and n_tt > 1:
@@ -805,12 +907,13 @@ def mt_sweep(tris_packed, tile_bounds, scene_bounds, rays,
             torch.empty((n,), dtype=torch.int32, device=rays.device),
             torch.empty((n,), dtype=torch.float32, device=rays.device),
             torch.empty((n,), dtype=torch.float32, device=rays.device))
+    workspace, ptrs = _stream_ptrs(workspace, n, rays.device)
     lib = cuda_build.load()
     err = lib.mt_sweep_launch(
         tris_packed.data_ptr(), T, order.data_ptr(), entry.data_ptr(),
         tb.data_ptr(), scene_bounds.data_ptr(), n_tt, rays.data_ptr(), n,
         *(o.data_ptr() for o in outs), int(any_hit), int(cull),
-        _visits_ptr(visits, n_rt, rays.device), _stream(rays.device))
+        _visits_ptr(visits, n_rt, rays.device), *ptrs, _stream(rays.device))
     mt_sweep.launches += 1
     _raise_on(err, "mt_sweep")
     return outs

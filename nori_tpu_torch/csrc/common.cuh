@@ -8,6 +8,7 @@
 // so every float expression rounds as its plain PyTorch version does.
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #define TILE_N 256    // rays per ray tile (one block)
@@ -22,6 +23,21 @@
 // and 4 the measured times flatten while the work list grows as 1/S.
 #define RESIDENT_V 4
 #define RESIDENT_S 4
+// The streamed sweep (stream_sweep.cu) and the 2-D sweep (mt_sweep.cu)
+// stage and test a slab or tile in quarters of STREAM_U and TILE_U
+// triangles.  A ray tile's row is cut into chunks of STREAM_S keys (MT_S
+// positions of the visit order), and each chunk is taken once per
+// quarter as a work item of the persistent blocks.  No first pass walks
+// ahead of the items: on the 541,696-triangle ajax stand-in no cap
+// leaves less than 60% of the visits behind it before 16 slabs, and a
+// closest row prunes as it goes, so its keys are dealt out in order.
+// Times flatten between 1 and 4 keys per chunk (PERF.md).
+#define STREAM_U 128
+#define TILE_U 128
+#define STREAM_S 2
+#define MT_S 4
+
+#define NW (TILE_N / 32)  // warps per block
 
 // 1/c with |c| clamped away from zero, keeping the sign (the JAX
 // package's slab-test reciprocal).
@@ -69,17 +85,15 @@ __device__ __forceinline__ int t_cap_bits(bool live, float bt, float maxt) {
     return __float_as_int(clamp0(tc));
 }
 
-// One ray against staged triangle c of a tile whose operand rows are
-// STRIDE floats apart; the expressions round exactly as the plain
-// versions in accel/sweep.py (left-to-right sums, no FMA).  u_out and
-// v_out, when given, receive the raw barycentrics.
-template <bool BW, int STRIDE>
-__device__ __forceinline__ void pair_test(
-        const float* tri, int c, float ox, float oy, float oz,
-        float dx, float dy, float dz, float mint, float maxt,
-        bool* hit, float* t_out, float* u_out = nullptr,
-        float* v_out = nullptr) {
-    auto R = [&](int i) { return tri[i * STRIDE + c]; };  // operand row i
+// One ray against one triangle whose operand row i is R(i); the
+// expressions round exactly as the plain versions in accel/sweep.py
+// (left-to-right sums, no FMA), wherever the rows are read from.  u_out
+// and v_out, when given, receive the raw barycentrics.
+template <bool BW, class Rows>
+__device__ __forceinline__ void pair_test_rows(
+        Rows R, float ox, float oy, float oz, float dx, float dy, float dz,
+        float mint, float maxt, bool* hit, float* t_out,
+        float* u_out = nullptr, float* v_out = nullptr) {
     bool ok;
     float t, u, v;
     if constexpr (BW) {
@@ -116,6 +130,18 @@ __device__ __forceinline__ void pair_test(
     if (v_out != nullptr) *v_out = v;
 }
 
+// pair_test_rows against staged triangle c of a tile whose operand rows
+// are STRIDE floats apart.
+template <bool BW, int STRIDE>
+__device__ __forceinline__ void pair_test(
+        const float* tri, int c, float ox, float oy, float oz,
+        float dx, float dy, float dz, float mint, float maxt,
+        bool* hit, float* t_out, float* u_out = nullptr,
+        float* v_out = nullptr) {
+    pair_test_rows<BW>([&](int i) { return tri[i * STRIDE + c]; }, ox, oy,
+                       oz, dx, dy, dz, mint, maxt, hit, t_out, u_out, v_out);
+}
+
 // The matmul-form pair test (K2-mxu): one ray's features f = [o, d,
 // o x d, 1] against staged triangle c of a tile's (10, 4 x FINE_T)
 // weight block, whose columns are [det | u_num | v_num | t_num] blocks
@@ -139,4 +165,270 @@ __device__ __forceinline__ void mxu_pair_test(
     *hit = ok && (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) &&
            (u + v <= 1.0f) && (t >= mint) && (t <= maxt);
     *t_out = t;
+}
+
+// ---------------------------------------------------------------------
+// What the two-pass sweeps share (resident_sweep.cu, stream_sweep.cu,
+// mt_sweep.cu): the packed per-ray best, the work list, the rays, the
+// skyline reduction and the staging copy.
+// ---------------------------------------------------------------------
+
+// the packed best of a ray that has no hit: larger than any hit's word
+#define PACKED_MISS 0xFF800000FFFFFFFFull
+
+// (t, idx) as one word whose unsigned order is the fold's: the high
+// half an order-preserving image of t in which -0 and +0 are equal,
+// the low half idx << 1 with t's sign bit below it, so a -0 winner
+// keeps its sign.
+__device__ __forceinline__ unsigned long long pack_best(float t, int i) {
+    if (i < 0) return PACKED_MISS;
+    const unsigned b = __float_as_uint(t);
+    const unsigned hi = t == 0.0f ? 0x80000000u
+                      : (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+    return ((unsigned long long)hi << 32) | ((unsigned)i << 1) | (b >> 31);
+}
+
+__device__ __forceinline__ void unpack_best(unsigned long long p, float* t,
+                                            int* i) {
+    const unsigned hi = (unsigned)(p >> 32), lo = (unsigned)p;
+    if (lo == 0xFFFFFFFFu) {
+        *t = __int_as_float(0x7f800000);
+        *i = -1;
+        return;
+    }
+    const unsigned b = hi == 0x80000000u ? lo << 31
+                     : (hi & 0x80000000u) ? (hi & 0x7fffffffu) : ~hi;
+    *t = __uint_as_float(b);
+    *i = (int)(lo >> 1);
+}
+
+// Publishes a thread's best (bt, bi) to its ray's packed best in device
+// memory if it is better than `known`, the smallest word this thread
+// knows to be there, and adopts the word it then finds there if that is
+// better still: work items that share a ray tile see each other's hits
+// while they run.  Exact: the word only ever holds a real hit.  Done
+// after every quarter it is 8% faster on closest rows than at an item's
+// start and end only, and costs any-hit rows nothing (PERF.md).
+__device__ __forceinline__ void share_best(unsigned long long* best_r,
+                                           unsigned long long& known,
+                                           float& bt, int& bi) {
+    const unsigned long long mine = pack_best(bt, bi);
+    if (mine < known) {
+        atomicMin(best_r, mine);
+        known = mine;
+    }
+    const unsigned long long there = __ldcg(best_r);
+    if (there < mine) {
+        unpack_best(there, &bt, &bi);
+        known = there;
+    }
+}
+
+// The scratch of the work items, in the caller's workspace.  The
+// resident sweep lists items (ray tile, first key, end key, any-hit) and
+// counts [items pushed, items pulled]; the streamed and 2-D sweeps list
+// one record per ray tile (below).
+struct Work {
+    unsigned long long* best;  // (N,) packed best of rays with items
+    int4* items;
+    int* counters;
+    int* pending;              // (n_rt,) items left per ray tile
+    int* row_hi;               // (n_rt,) published skylines (K5, K6), or null
+};
+
+// ---- the work items of the streamed and 2-D sweeps ----
+// The scratch as their plan leaves it: w.items holds one record per ray
+// tile with work (ray tile, first key or position, end, chunks),
+// w.counters [records, item numbers pulled, most chunks of a record],
+// w.pending the items each ray tile still waits for, w.row_hi the
+// skyline it has published: t_hi's bits, an upper bound of every later
+// one, or -1 once no ray searches.
+
+#define ITEM_SHUT 256  // flag beside the quarter in an item's fourth word
+
+// What the threads of a persistent block pass each other between items.
+struct ItemSlot {
+    int4 item;
+    bool last;
+};
+
+// The length of the prefix of [0, n) on which pred holds, for a pred
+// that holds on a prefix only.  Every thread of the block must call it.
+template <class Pred>
+__device__ __forceinline__ int prefix_length(int n, Pred pred) {
+    int len = 0;
+    for (int p0 = 0; p0 < n; p0 += TILE_N) {
+        const int p = p0 + threadIdx.x;
+        const int c = __syncthreads_count(p < n && pred(p));
+        len += c;
+        if (c < TILE_N) break;
+    }
+    return len;
+}
+
+// The plan's record of ray tile rt, whose row has work on [0, end): cut
+// into chunks of chunk_len, each `quarters` work items; sky is the
+// skyline the ray tile starts from.  One thread calls it.
+__device__ __forceinline__ void push_record(const Work& w, int rt, int end,
+                                            int chunk_len, int quarters,
+                                            int sky) {
+    const int chunks = (end + chunk_len - 1) / chunk_len;
+    w.items[atomicAdd(&w.counters[0], 1)] = make_int4(rt, 0, end, chunks);
+    atomicMax(&w.counters[2], chunks);
+    w.pending[rt] = chunks * quarters;
+    w.row_hi[rt] = sky;
+}
+
+// Pulls the block's next work item into *it: (ray tile, first, end,
+// quarter | ITEM_SHUT); false once the item numbers are used up.  The
+// numbers run chunk-major over the records, `quarters` each: i = (chunk
+// x records + record) x quarters + quarter; a record with fewer chunks
+// has no such item and the next number is pulled.  shut(ray tile,
+// first, its published skyline) says that the item has nothing left to
+// test: it then only takes its pending count.
+template <class Shut>
+__device__ __forceinline__ bool pull_item(const Work& w, int chunk_len,
+                                          int quarters, ItemSlot& slot,
+                                          Shut shut, int4* it) {
+    for (;;) {
+        if (threadIdx.x == 0) {
+            const long long per_chunk = (long long)w.counters[0] * quarters;
+            const long long i = atomicAdd(&w.counters[1], 1);
+            int4 got = make_int4(-1, 0, 0, 0);  // the numbers are used up
+            if (i < per_chunk * w.counters[2]) {
+                const int at = (int)(i % per_chunk);
+                const int4 rec = w.items[at / quarters];
+                const int first = rec.y + (int)(i / per_chunk) * chunk_len;
+                got = make_int4(-2, 0, 0, 0);  // no such item
+                if (first < rec.z) {
+                    const bool s =
+                        shut(rec.x, first, __ldcg(&w.row_hi[rec.x]));
+                    got = make_int4(rec.x, first,
+                                    min(first + chunk_len, rec.z),
+                                    at % quarters | (s ? ITEM_SHUT : 0));
+                }
+            }
+            slot.item = got;
+        }
+        __syncthreads();
+        *it = slot.item;
+        __syncthreads();  // read before the next pull writes it
+        if (it->x == -1) return false;
+        if (it->x >= 0) return true;
+    }
+}
+
+// Takes one pending count of ray tile rt once the block's item has
+// folded its hits.  True, in every thread, in the block that takes the
+// last one: every item's folds are then visible, and it writes the ray
+// tile's answers.
+__device__ __forceinline__ bool last_item(const Work& w, int rt,
+                                          ItemSlot& slot) {
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) slot.last = atomicSub(&w.pending[rt], 1) == 1;
+    __syncthreads();
+    const bool last = slot.last;
+    if (last) __threadfence();
+    return last;
+}
+
+struct Ray {
+    float ox, oy, oz, dx, dy, dz, mint, maxt;
+    float f[10];  // MXU features [o, d, o x d, 1] (the TPU kernel's `feats`)
+};
+
+__device__ __forceinline__ Ray load_ray(const float* rays, int n, int r) {
+    Ray y;
+    y.ox = rays[0 * n + r], y.oy = rays[1 * n + r], y.oz = rays[2 * n + r];
+    y.dx = rays[3 * n + r], y.dy = rays[4 * n + r], y.dz = rays[5 * n + r];
+    y.mint = rays[6 * n + r], y.maxt = rays[7 * n + r];
+    const float f[10] = {y.ox, y.oy, y.oz, y.dx, y.dy, y.dz,
+                         y.oy * y.dz - y.oz * y.dy, y.oz * y.dx - y.ox * y.dz,
+                         y.ox * y.dy - y.oy * y.dx, 1.0f};
+#pragma unroll
+    for (int i = 0; i < 10; ++i) y.f[i] = f[i];
+    return y;
+}
+
+// The skyline reduction's slots in shared memory: two sets used in
+// turn, so one barrier per reduction suffices.
+struct Skyline {
+    int red_max[2][NW];
+    unsigned red_or[2][NW];
+};
+
+// The warps' partial skyline (max of t_cap bits, OR of `need`) into slot
+// set s; the caller's next __syncthreads publishes it.
+__device__ __forceinline__ void skyline_partials(Skyline& sm, int s,
+                                                 bool need, float bt,
+                                                 float maxt) {
+    const int v = __reduce_max_sync(0xffffffffu, t_cap_bits(need, bt, maxt));
+    const unsigned o = __reduce_or_sync(0xffffffffu, need ? 1u : 0u);
+    if ((threadIdx.x & 31) == 0) {
+        sm.red_max[s][threadIdx.x >> 5] = v;
+        sm.red_or[s][threadIdx.x >> 5] = o;
+    }
+}
+
+// After the barrier: t_hi and whether the walk goes on (any-hit: some
+// ray still needs a hit; closest: t_hi > 0), the same in every thread.
+__device__ __forceinline__ void skyline_read(const Skyline& sm, int s,
+                                             bool ah, int* t_hi,
+                                             bool* alive) {
+    int m = sm.red_max[s][0];
+    unsigned o = sm.red_or[s][0];
+#pragma unroll
+    for (int w = 1; w < NW; ++w) {
+        m = max(m, sm.red_max[s][w]);
+        o |= sm.red_or[s][w];
+    }
+    *t_hi = m;
+    *alive = ah ? o != 0 : m > 0;
+}
+
+// Does this ray still search?  (Closest: every live ray; any-hit: the
+// live rays without a hit.)
+__device__ __forceinline__ bool needs(bool live, bool ah, int bi) {
+    return live && !(ah && bi >= 0);
+}
+
+// The skyline of the block's starting state (slot set 0, one barrier).
+__device__ __forceinline__ void skyline_start(Skyline& sm, bool live,
+                                              bool ah, float bt, int bi,
+                                              float maxt, int* t_hi,
+                                              bool* alive) {
+    skyline_partials(sm, 0, needs(live, ah, bi), bt, maxt);
+    __syncthreads();
+    skyline_read(sm, 0, ah, t_hi, alive);
+}
+
+// This thread's share of the copy of ROWS rows of COLS floats, `stride`
+// floats apart at src, into dst (rows COLS apart), in 16-byte chunks;
+// one commit group.
+template <int ROWS, int COLS>
+__device__ __forceinline__ void stage_rows(const float* src, size_t stride,
+                                           float* dst) {
+    constexpr int CHUNKS = COLS / 4;
+    for (int e = threadIdx.x; e < ROWS * CHUNKS; e += TILE_N) {
+        const int rr = e / CHUNKS, cc = (e - rr * CHUNKS) * 4;
+        __pipeline_memcpy_async(dst + rr * COLS + cc, src + rr * stride + cc,
+                                16);
+    }
+    __pipeline_commit();
+}
+
+// The blocks of `threads` threads the card holds at once for a kernel.
+template <class Kernel>
+static int resident_blocks(Kernel kernel, int threads) {
+    int dev, sms, per_sm;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, 0) !=
+            cudaSuccess) {
+        return 0;
+    }
+    return sms * (per_sm > 1 ? per_sm : 1);
 }

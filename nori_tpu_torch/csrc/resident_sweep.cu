@@ -71,8 +71,6 @@
 // thread forms its ray's 10 features and takes det, u_num, v_num and
 // t_num as 10-term fp32 sums in feature order, on the FP32 units: TF32
 // tensor cores keep ~3 digits and the hit test needs full fp32.
-#include <cuda_pipeline.h>
-
 #include "common.cuh"
 
 enum { OP_MT = 0, OP_BW = 1, OP_MXU = 2 };
@@ -84,113 +82,21 @@ struct Op {
     static constexpr int tile = rows * cols;  // floats staged per visit
 };
 
-#define NW (TILE_N / 32)
-// the packed best of a ray that has no hit: larger than any hit's word
-#define PACKED_MISS 0xFF800000FFFFFFFFull
-
-// (t, idx) as one word whose unsigned order is the fold's: the high
-// half an order-preserving image of t in which -0 and +0 are equal,
-// the low half idx << 1 with t's sign bit below it, so a -0 winner
-// keeps its sign.
-__device__ __forceinline__ unsigned long long pack_best(float t, int i) {
-    if (i < 0) return PACKED_MISS;
-    const unsigned b = __float_as_uint(t);
-    const unsigned hi = t == 0.0f ? 0x80000000u
-                      : (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-    return ((unsigned long long)hi << 32) | ((unsigned)i << 1) | (b >> 31);
-}
-
-__device__ __forceinline__ void unpack_best(unsigned long long p, float* t,
-                                            int* i) {
-    const unsigned hi = (unsigned)(p >> 32), lo = (unsigned)p;
-    if (lo == 0xFFFFFFFFu) {
-        *t = __int_as_float(0x7f800000);
-        *i = -1;
-        return;
-    }
-    const unsigned b = hi == 0x80000000u ? lo << 31
-                     : (hi & 0x80000000u) ? (hi & 0x7fffffffu) : ~hi;
-    *t = __uint_as_float(b);
-    *i = (int)(lo >> 1);
-}
-
-struct Ray {
-    float ox, oy, oz, dx, dy, dz, mint, maxt;
-    float f[10];  // MXU features [o, d, o x d, 1] (the TPU kernel's `feats`)
-};
-
-__device__ __forceinline__ Ray load_ray(const float* rays, int n, int r) {
-    Ray y;
-    y.ox = rays[0 * n + r], y.oy = rays[1 * n + r], y.oz = rays[2 * n + r];
-    y.dx = rays[3 * n + r], y.dy = rays[4 * n + r], y.dz = rays[5 * n + r];
-    y.mint = rays[6 * n + r], y.maxt = rays[7 * n + r];
-    const float f[10] = {y.ox, y.oy, y.oz, y.dx, y.dy, y.dz,
-                         y.oy * y.dz - y.oz * y.dy, y.oz * y.dx - y.ox * y.dz,
-                         y.ox * y.dy - y.oy * y.dx, 1.0f};
-#pragma unroll
-    for (int i = 0; i < 10; ++i) y.f[i] = f[i];
-    return y;
-}
-
 // Shared memory of both passes: the staging double buffer and the
 // skyline reduction's slots, two sets used in turn, so one barrier per
 // reduction suffices.
 template <int OP>
 struct Smem {
     __align__(16) float tri[2][Op<OP>::tile];
-    int red_max[2][NW];
-    unsigned red_or[2][NW];
+    Skyline sky;
 };
 
 // This thread's share of the copy of tile j into dst (one commit group).
 template <int OP>
 __device__ __forceinline__ void stage(const float* tris, size_t stride,
                                       int j, float* dst) {
-    constexpr int COLS = Op<OP>::cols, CHUNKS = COLS / 4;
-    const float* src = tris + (size_t)j * COLS;
-    for (int e = threadIdx.x; e < Op<OP>::rows * CHUNKS; e += TILE_N) {
-        const int rr = e / CHUNKS, cc = (e - rr * CHUNKS) * 4;
-        __pipeline_memcpy_async(dst + rr * COLS + cc, src + rr * stride + cc,
-                                16);
-    }
-    __pipeline_commit();
-}
-
-// The warps' partial skyline (max of t_cap bits, OR of `need`) into slot
-// set s; the caller's next __syncthreads publishes it.
-template <int OP>
-__device__ __forceinline__ void skyline_partials(Smem<OP>& sm, int s,
-                                                 bool need, float bt,
-                                                 float maxt) {
-    const int v = __reduce_max_sync(0xffffffffu, t_cap_bits(need, bt, maxt));
-    const unsigned o = __reduce_or_sync(0xffffffffu, need ? 1u : 0u);
-    if ((threadIdx.x & 31) == 0) {
-        sm.red_max[s][threadIdx.x >> 5] = v;
-        sm.red_or[s][threadIdx.x >> 5] = o;
-    }
-}
-
-// After the barrier: t_hi and whether the walk goes on (any-hit: some
-// ray still needs a hit; closest: t_hi > 0), the same in every thread.
-template <int OP>
-__device__ __forceinline__ void skyline_read(const Smem<OP>& sm, int s,
-                                             bool ah, int* t_hi,
-                                             bool* alive) {
-    int m = sm.red_max[s][0];
-    unsigned o = sm.red_or[s][0];
-#pragma unroll
-    for (int w = 1; w < NW; ++w) {
-        m = max(m, sm.red_max[s][w]);
-        o |= sm.red_or[s][w];
-    }
-    *t_hi = m;
-    *alive = ah ? o != 0 : m > 0;
-}
-
-// Does this ray still search?  (Closest: every live ray; any-hit: the
-// live rays without a hit.)
-__device__ __forceinline__ bool needs(bool live, bool ah, int bi) {
-    return live && !(ah && bi >= 0);
+    stage_rows<Op<OP>::rows, Op<OP>::cols>(
+        tris + (size_t)j * Op<OP>::cols, stride, dst);
 }
 
 // Walks keys row[k0 .. k1) of one ray tile, at most vmax visits, from
@@ -243,34 +149,16 @@ __device__ int walk(Smem<OP>& sm, const float* tris, int T, const int* row,
         }
         // one barrier: publishes the skyline, lands the next tile and
         // frees this one for the copy after next
-        skyline_partials(sm, nv & 1, needs(live, ah, bi), bt, y.maxt);
+        skyline_partials(sm.sky, nv & 1, needs(live, ah, bi), bt, y.maxt);
         __pipeline_wait_prior(0);
         __syncthreads();
-        skyline_read(sm, nv & 1, ah, &t_hi, &alive);
+        skyline_read(sm.sky, nv & 1, ah, &t_hi, &alive);
         ++k;
         if (!(alive && next && passes(k))) break;
     }
     *n_visits += nv;
     return k;
 }
-
-// The skyline of the block's starting state (slot set 0, one barrier).
-template <int OP>
-__device__ __forceinline__ void skyline_start(Smem<OP>& sm, bool live,
-                                              bool ah, float bt, int bi,
-                                              float maxt, int* t_hi,
-                                              bool* alive) {
-    skyline_partials(sm, 0, needs(live, ah, bi), bt, maxt);
-    __syncthreads();
-    skyline_read(sm, 0, ah, t_hi, alive);
-}
-
-struct Work {
-    unsigned long long* best;  // (N,) packed best of rays in spilled tiles
-    int4* items;               // (ray tile, first key, end key, any-hit)
-    int* counters;             // [items pushed, items pulled]
-    int* pending;              // (n_rt,) items left per spilled ray tile
-};
 
 template <int OP, bool ANY_HIT, bool MIXED>
 __global__ void resident_first_pass(
@@ -288,7 +176,7 @@ __global__ void resident_first_pass(
     float bt = __int_as_float(0x7f800000);  // +inf
     int bi = -1, t_hi, n_visits = 0;
     bool alive;
-    skyline_start(sm, live, ah, bt, bi, y.maxt, &t_hi, &alive);
+    skyline_start(sm.sky, live, ah, bt, bi, y.maxt, &t_hi, &alive);
     const int* row = keys + (size_t)rt * n_keys;
     const int k = walk(sm, tris, T, row, 0, n_keys, RESIDENT_V, idx_mask, y,
                        live, ah, bt, bi, t_hi, alive, &n_visits);
@@ -329,15 +217,15 @@ __global__ void resident_tail_pass(
         float* __restrict__ t_out, int* __restrict__ idx_out,
         int* __restrict__ visits, Work w) {
     __shared__ Smem<OP> sm;
-    __shared__ int4 s_item;
-    __shared__ bool s_last;
+    __shared__ ItemSlot slot;
     for (;;) {
         if (threadIdx.x == 0) {
             const int i = atomicAdd(&w.counters[1], 1);
-            s_item = i < w.counters[0] ? w.items[i] : make_int4(-1, 0, 0, 0);
+            slot.item =
+                i < w.counters[0] ? w.items[i] : make_int4(-1, 0, 0, 0);
         }
         __syncthreads();
-        const int4 it = s_item;
+        const int4 it = slot.item;
         if (it.x < 0) return;  // the list is empty
         const int rt = it.x;
         const int r = rt * TILE_N + threadIdx.x;
@@ -350,7 +238,7 @@ __global__ void resident_tail_pass(
         int bi, t_hi, n_visits = 0;
         bool alive;
         unpack_best(p0, &bt, &bi);
-        skyline_start(sm, live, ah, bt, bi, y.maxt, &t_hi, &alive);
+        skyline_start(sm.sky, live, ah, bt, bi, y.maxt, &t_hi, &alive);
         walk(sm, tris, T, keys + (size_t)rt * n_keys, it.y, it.z,
              it.z - it.y, idx_mask, y, live, ah, bt, bi, t_hi, alive,
              &n_visits);
@@ -360,12 +248,7 @@ __global__ void resident_tail_pass(
             atomicAdd(&visits[rt], n_visits);
         }
         // the last item of a ray tile writes its rays' answers
-        __threadfence();
-        __syncthreads();
-        if (threadIdx.x == 0) s_last = atomicSub(&w.pending[rt], 1) == 1;
-        __syncthreads();
-        if (s_last) {
-            __threadfence();
+        if (last_item(w, rt, slot)) {
             unpack_best(atomicAdd(&w.best[r], 0ull), &bt, &bi);
             t_out[r] = bt;
             idx_out[r] = bi;
@@ -378,16 +261,7 @@ template <int OP, bool AH, bool MX>
 static int tail_grid() {
     static int grid = 0;
     if (grid == 0) {
-        int dev, sms, per_sm;
-        if (cudaGetDevice(&dev) != cudaSuccess ||
-            cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   dev) != cudaSuccess ||
-            cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &per_sm, resident_tail_pass<OP, AH, MX>, TILE_N, 0) !=
-                cudaSuccess) {
-            return 0;
-        }
-        grid = sms * (per_sm > 1 ? per_sm : 1);
+        grid = resident_blocks(resident_tail_pass<OP, AH, MX>, TILE_N);
     }
     return grid;
 }

@@ -10,122 +10,142 @@
 // Contract: tris (16, T) float32, T a multiple of STREAM_T, rows
 // [bw(12) | 0 x 4] (use_bw) or [v0 | e1 | e2 | 0 x 7]; keys (n_rt,
 // n_keys) int32 from ray_tile_entry_keys on the (T / STREAM_T, 8) slab
-// bounds, each key a slab's minimum entry distance bits with the slab
-// index in the low idx_bits bits.  Output t (N,) float32 and idx (N,)
-// int32, idx -1 on a miss; ties in t keep the lowest triangle index.
-// For any-hit only idx >= 0 is meaningful.  With sub-slab culling
-// (n_sub > 1, Moller-Trumbore operand only) sub_boxes holds (T / sub_t,
-// 8) boxes [lo xyz | hi xyz | pad], one per sub-block of sub_t =
-// STREAM_T / n_sub triangles.  visits, when not null, receives per ray
-// tile the number of triangle groups it tested: slabs, or sub-blocks
-// when culling.
+// bounds, each row ascending, each key a slab's minimum entry distance
+// bits with the slab index in the low idx_bits bits.  Output t (N,)
+// float32 and idx (N,) int32, idx -1 on a miss; ties in t keep the
+// lowest triangle index.  For any-hit only idx >= 0 is meaningful.  With
+// sub-slab culling (n_sub > 1, Moller-Trumbore operand only) sub_boxes
+// holds (T / sub_t, 8) boxes [lo xyz | hi xyz | pad], one per sub-block
+// of sub_t = STREAM_T / n_sub triangles.  visits, when not null,
+// receives per ray tile the number of triangle groups it tested:
+// quarter slabs of STREAM_U triangles, or, when culling, groups of
+// min(sub_t, STREAM_U).  The caller's workspace holds the per-ray
+// packed best (N x 8 bytes), one record of 4 int32 per ray tile, three
+// counters, and one pending count and one published skyline per ray
+// tile.
 //
-// Bound on the H100: the pair tests (~40 flops BW, ~56 MT, 512 per ray
-// and visit) and the copy of each visited slab; which one dominates is
-// not settled (PERF.md: MT, with more flops but 18 KB per visit and 36
-// KB of shared memory per block, ran faster than BW with 24 KB and
-// 48 KB).  The BW operand of the 541,696-triangle ajax stand-in is
-// 26 MB in its 12 read rows, so it stays in the 50 MB L2 after the
-// first touches.  Design: one block per 256-ray tile, one thread per
-// ray, K2's walk (integer skyline exit, any-hit exit) over slabs.  Each visited slab's read rows (12 or
-// 9 x 2 KB, each row 16-byte aligned and contiguous) are staged in a
-// shared-memory double buffer by cp.async in 16-byte chunks: the copy
-// for key k+1 is issued before the test of key k, and the block waits
-// for the one copy still in flight at exit (the bookkeeping invariant
-// of the TPU kernel, pallas_mt.py:541-543).  A copy is issued only for
-// a key whose entry bound does not already fail the skyline, since
-// t_hi never rises.  The TPU's 16-row padding (DMA alignment), SMEM
-// ray chunking, key caps and overflow fallback are not needed: one
-// launch covers all rays with uncapped keys.
+// Bound on the H100: the pair tests' arithmetic (~40 flops BW, ~56
+// MT, 512 per ray and visited slab).  The operand (26 MB of read rows
+// for the 541,696-triangle ajax stand-in) stays in the 50 MB L2, and a
+// staged quarter slab is 6 KB.  Measured on that scene (PERF.md): the
+// rows are even (32,768 camera rays: 20.7 slabs per ray tile, p99 29;
+// one whitted batch's sorted shadow rays: 23.6, max 51), but one block
+// of 8 warps alone on its SM takes ~190 us per 512-triangle visit, a
+// fifth of the SM's issue rate, because the pair test is one dependent
+// chain; with 128 ray tiles on 132 SMs every block runs so.  A closest
+// walk prunes as it goes (65 candidate keys per row, 20.7 visited), so
+// the keys of a row must stay in order; any-hit visits every candidate.
 //
-// Sub-slab culling (K5-cull): the copy stays one whole slab, and after
-// it lands each sub-block is tested only if some thread's ray, still
-// searching, enters the sub-block's box before its useful t (min(bt,
-// maxt) for closest, maxt for any-hit), a slab test and one
-// __syncthreads_or per sub-block.  Culling only skips sub-blocks no ray
-// can hit in time, so the answer equals the dense sweep's.
-#include <cuda_pipeline.h>
-
+// Design: two launches, with no host read between them.
+// * Plan, one block per 256-ray tile: the keys that pass the skyline of
+//   the rays' maxt (a prefix, since rows ascend) are cut into chunks of
+//   STREAM_S keys; a ray tile with none writes its misses.  Each chunk
+//   is STREAM_T / STREAM_U work items, one per quarter of the slabs.
+// * Sweep, a fixed grid of persistent blocks (as many as the SMs hold
+//   at once) that pull item numbers from one counter.  The numbers run
+//   chunk-major: all ray tiles' first chunks, then all second chunks,
+//   so a row's keys are taken nearly in order while the card works on
+//   every row at once, four quarters each.  An item loads its rays,
+//   starts each from the packed best in the workspace (an upper bound
+//   of the final best, so pruning with it stays exact), stages its
+//   quarter of each slab (12 or 9 rows x 128 triangles) by cp.async
+//   into a double buffer, the copy of the next key overlapping the test
+//   of this one, tests with the pair loop unrolled x8 (independent
+//   tests interleave, the fold stays in index order), and recomputes
+//   the skyline after every quarter; one __syncthreads publishes it,
+//   lands the next copy and frees the tested buffer.  A copy is issued
+//   only for a key that still passes the skyline, since t_hi never
+//   rises.  The item folds its hits into the packed best with a 64-bit
+//   atomicMin, whose order is the fold's (smallest t, then lowest
+//   index), so any order of items gives the same answer; it does so
+//   after every quarter and takes over a better word it finds there
+//   (share_best), so the four quarters of a chunk prune with each
+//   other's hits and an any-hit ray stops in all four once one has hit.
+//   The item that takes a ray tile's last pending count writes its t and
+//   idx.
+// This takes the place of the TPU kernel's sequential grid over ray
+// chunks with capped key rows and an overflow fallback: one pair of
+// launches covers all rays with uncapped keys.
+//
+// Sub-slab culling (K5-cull): after a quarter lands, each of its
+// sub-blocks is tested only if some ray of the block, still searching,
+// enters the sub-block's box before its useful t (min(bt, maxt) for
+// closest, maxt for any-hit): a slab test and one __syncthreads_or per
+// sub-block.  bt starts from the packed best, an upper bound, so
+// culling only skips sub-blocks no ray can hit in time and the answer
+// equals the dense sweep's.
 #include "common.cuh"
 
-template <bool BW, bool ANY_HIT, bool CULL>
-__global__ void __launch_bounds__(TILE_N) stream_sweep_kernel(
-        const float* __restrict__ tris, int T, const int* __restrict__ keys,
-        int n_keys, int idx_mask, const float* __restrict__ rays, int n,
-        int n_sub, const float* __restrict__ sub_boxes,
-        float* __restrict__ t_out, int* __restrict__ idx_out,
-        int* __restrict__ visits) {
-    constexpr int ROWS = BW ? 12 : 9;
-    constexpr int SLAB = ROWS * STREAM_T;   // floats in one buffer
-    constexpr int ROW_CHUNKS = STREAM_T / 4;  // 16-byte chunks per row
-    extern __shared__ __align__(16) float s_buf[];  // [2][ROWS][STREAM_T]
-    __shared__ int s_red[TILE_N / 32];
-    const int rt = blockIdx.x;
-    const int r = rt * TILE_N + threadIdx.x;
-    const float ox = rays[0 * n + r], oy = rays[1 * n + r], oz = rays[2 * n + r];
-    const float dx = rays[3 * n + r], dy = rays[4 * n + r], dz = rays[5 * n + r];
-    const float mint = rays[6 * n + r], maxt = rays[7 * n + r];
-    const bool live = mint <= maxt;
-    const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-    // without culling the sub-block loop folds to one whole-slab pass
-    const int nsb = CULL ? n_sub : 1;
-    const int sub_t = CULL ? STREAM_T / n_sub : STREAM_T;
-    int n_visits = 0;
+#define STREAM_Q (STREAM_T / STREAM_U)  // work items per chunk of keys
 
-    // stage slab j's read rows into buffer `slot` (one commit group)
-    auto issue = [&](int j, int slot) {
-        float* dst = s_buf + slot * SLAB;
-        const float* src = tris + (size_t)j * STREAM_T;
-        for (int e = threadIdx.x; e < ROWS * ROW_CHUNKS; e += TILE_N) {
-            const int rr = e / ROW_CHUNKS, cc = (e - rr * ROW_CHUNKS) * 4;
-            __pipeline_memcpy_async(dst + rr * STREAM_T + cc,
-                                    src + (size_t)rr * T + cc, 16);
-        }
-        __pipeline_commit();
+template <bool BW>
+struct StreamSmem {
+    static constexpr int rows = BW ? 12 : 9;
+    __align__(16) float tri[2][rows * STREAM_U];
+    Skyline sky;
+};
+
+// Walks quarter q of the slabs of keys row[k0 .. k1) of one ray tile,
+// from each thread's best (bt, bi) and the block's skyline (t_hi,
+// alive), which it updates; adds the triangle groups it tested to
+// *n_visits.  Every branch on t_hi, alive and k is uniform across the
+// block.
+template <bool BW, bool CULL>
+__device__ void stream_walk(StreamSmem<BW>& sm, const float* tris, int T,
+                            const int* row, int k0, int k1, int q,
+                            int idx_mask, const Ray& y, bool live, bool ah,
+                            int n_sub, const float* sub_boxes,
+                            unsigned long long* best_r,
+                            unsigned long long& known, float& bt, int& bi,
+                            int& t_hi, bool& alive, int* n_visits) {
+    constexpr int ROWS = StreamSmem<BW>::rows;
+    auto passes = [&](int k) { return (row[k] & ~idx_mask) <= t_hi; };
+    auto stage = [&](int k, int slot) {
+        const int j = row[k] & idx_mask;
+        stage_rows<ROWS, STREAM_U>(
+            tris + (size_t)j * STREAM_T + q * STREAM_U, (size_t)T,
+            sm.tri[slot]);
     };
-
-    float bt = __int_as_float(0x7f800000);  // +inf
-    int bi = -1;
-    int t_hi = block_max_int(t_cap_bits(live, bt, maxt), s_red);
-    bool alive = __syncthreads_or(live) != 0;
-    const int* row = keys + (size_t)rt * n_keys;
-
-    // every condition below is uniform across the block
-    if (n_keys > 0 && alive && (row[0] & ~idx_mask) <= t_hi) {
-        issue(row[0] & idx_mask, 0);
-    }
-    for (int k = 0; k < n_keys && alive; ++k) {
-        const int key = row[k];
-        if ((key & ~idx_mask) > t_hi) break;  // skyline: int compare
-        if (k + 1 < n_keys && (row[k + 1] & ~idx_mask) <= t_hi) {
-            issue(row[k + 1] & idx_mask, (k + 1) & 1);
-        } else {
-            __pipeline_commit();  // empty group: copy k stays second newest
-        }
-        __pipeline_wait_prior(1);  // this thread's chunks of slab k landed
-        __syncthreads();           // ... and every other thread's
-        const float* slab_k = s_buf + (k & 1) * SLAB;
-        const int j = key & idx_mask;
-        for (int sb = 0; sb < nsb; ++sb) {
+    // sub-blocks of sub_t triangles; a quarter is tested in spans
+    const int sub_t = CULL ? STREAM_T / n_sub : STREAM_U;
+    const int span = sub_t < STREAM_U ? sub_t : STREAM_U;
+    const float ix = safe_inv(y.dx), iy = safe_inv(y.dy), iz = safe_inv(y.dz);
+    int k = k0, nv = 0, tested = 0;
+    if (!(alive && k < k1 && passes(k))) return;
+    stage(k, 0);
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    for (;;) {
+        // key k's quarter has landed in buffer nv & 1; stage the next
+        // key now unless it already fails the skyline
+        const int j = row[k] & idx_mask;
+        const bool next = k + 1 < k1 && passes(k + 1);
+        if (next) stage(k + 1, (nv + 1) & 1);
+        const float* tile = sm.tri[nv & 1];
+        ++nv;
+        for (int c0 = 0; c0 < STREAM_U; c0 += span) {
             if (CULL) {
                 // can any ray still searching enter this sub-block in time?
+                const int sb = (q * STREAM_U + c0) / sub_t;
                 float tn;
                 const bool want =
-                    live && !(ANY_HIT && bi >= 0) &&
-                    slab(sub_boxes + ((size_t)j * nsb + sb) * 8, ox, oy, oz,
-                         ix, iy, iz, mint, ANY_HIT ? maxt : fminf(bt, maxt),
-                         &tn);
+                    needs(live, ah, bi) &&
+                    slab(sub_boxes + ((size_t)j * n_sub + sb) * 8, y.ox, y.oy,
+                         y.oz, ix, iy, iz, y.mint,
+                         ah ? y.maxt : fminf(bt, y.maxt), &tn);
                 if (__syncthreads_or(want) == 0) continue;
             }
-            ++n_visits;
-            if (live && !(ANY_HIT && bi >= 0)) {
-                const int c0 = sb * sub_t;
-                const int base = j * STREAM_T;
-                for (int c = c0; c < c0 + sub_t; ++c) {
+            ++tested;
+            if (needs(live, ah, bi)) {
+                const int base = j * STREAM_T + q * STREAM_U;
+                // independent pair tests interleave; the fold stays in order
+#pragma unroll 8
+                for (int c = c0; c < c0 + span; ++c) {
                     bool hit;
                     float t;
-                    pair_test<BW, STREAM_T>(slab_k, c, ox, oy, oz, dx, dy,
-                                            dz, mint, maxt, &hit, &t);
+                    pair_test<BW, STREAM_U>(tile, c, y.ox, y.oy, y.oz, y.dx,
+                                            y.dy, y.dz, y.mint, y.maxt, &hit,
+                                            &t);
                     if (hit && (t < bt || (t == bt && base + c < bi))) {
                         bt = t;
                         bi = base + c;
@@ -133,52 +153,149 @@ __global__ void __launch_bounds__(TILE_N) stream_sweep_kernel(
                 }
             }
         }
-        // the reductions end in __syncthreads, so no thread still reads
-        // buffer k & 1 when the next iteration refills it
-        if (ANY_HIT) {
-            const bool need = live && bi < 0;
-            alive = __syncthreads_or(need) != 0;
-            t_hi = block_max_int(t_cap_bits(need, bt, maxt), s_red);
-        } else {
-            t_hi = block_max_int(t_cap_bits(live, bt, maxt), s_red);
-            alive = t_hi > 0;
+        share_best(best_r, known, bt, bi);
+        // one barrier: publishes the skyline, lands the next quarter and
+        // frees this one for the copy after next
+        skyline_partials(sm.sky, nv & 1, needs(live, ah, bi), bt, y.maxt);
+        __pipeline_wait_prior(0);
+        __syncthreads();
+        skyline_read(sm.sky, nv & 1, ah, &t_hi, &alive);
+        ++k;
+        if (!(alive && next && passes(k))) break;
+    }
+    *n_visits += tested;
+}
+
+template <bool ANY_HIT>
+__global__ void stream_plan(const int* __restrict__ keys, int n_keys,
+                            int idx_mask, const float* __restrict__ rays,
+                            int n, float* __restrict__ t_out,
+                            int* __restrict__ idx_out,
+                            int* __restrict__ visits, Work w) {
+    __shared__ Skyline sky;
+    const int rt = blockIdx.x;
+    const int r = rt * TILE_N + threadIdx.x;
+    const float mint = rays[6 * n + r], maxt = rays[7 * n + r];
+    int t_hi;
+    bool alive;
+    skyline_start(sky, mint <= maxt, ANY_HIT, __int_as_float(0x7f800000), -1,
+                  maxt, &t_hi, &alive);
+    // the keys that pass the skyline: a prefix, since rows ascend
+    const int* row = keys + (size_t)rt * n_keys;
+    const int k_end = !alive ? 0 : prefix_length(n_keys, [&](int k) {
+        return (row[k] & ~idx_mask) <= t_hi;
+    });
+    if (visits != nullptr && threadIdx.x == 0) visits[rt] = 0;
+    if (k_end == 0) {
+        t_out[r] = __int_as_float(0x7f800000);
+        idx_out[r] = -1;
+        return;
+    }
+    w.best[r] = PACKED_MISS;
+    if (threadIdx.x == 0) push_record(w, rt, k_end, STREAM_S, STREAM_Q, t_hi);
+}
+
+template <bool BW, bool ANY_HIT, bool CULL>
+__global__ void stream_sweep_items(
+        const float* __restrict__ tris, int T, const int* __restrict__ keys,
+        int n_keys, int idx_mask, const float* __restrict__ rays, int n,
+        int n_sub, const float* __restrict__ sub_boxes,
+        float* __restrict__ t_out, int* __restrict__ idx_out,
+        int* __restrict__ visits, Work w) {
+    __shared__ StreamSmem<BW> sm;
+    __shared__ ItemSlot slot;
+    // an item whose first key lies beyond the ray tile's published
+    // skyline is shut
+    auto shut = [&](int rt, int k0, int hi) {
+        return (keys[(size_t)rt * n_keys + k0] & ~idx_mask) > hi;
+    };
+    int4 it;
+    while (pull_item(w, STREAM_S, STREAM_Q, slot, shut, &it)) {
+        const int rt = it.x;
+        const int r = rt * TILE_N + threadIdx.x;
+        if (!(it.w & ITEM_SHUT)) {
+            const Ray y = load_ray(rays, n, r);
+            const bool live = y.mint <= y.maxt;
+            unsigned long long known = __ldcg(&w.best[r]);
+            float bt;
+            int bi, t_hi, n_visits = 0;
+            bool alive;
+            unpack_best(known, &bt, &bi);
+            skyline_start(sm.sky, live, ANY_HIT, bt, bi, y.maxt, &t_hi,
+                          &alive);
+            stream_walk<BW, CULL>(sm, tris, T, keys + (size_t)rt * n_keys,
+                                  it.y, it.z, it.w, idx_mask, y, live,
+                                  ANY_HIT, n_sub, sub_boxes, &w.best[r],
+                                  known, bt, bi, t_hi, alive, &n_visits);
+            const unsigned long long p = pack_best(bt, bi);
+            if (p < known) atomicMin(&w.best[r], p);
+            if (threadIdx.x == 0) {
+                atomicMin(&w.row_hi[rt], alive ? t_hi : -1);
+                if (visits != nullptr && n_visits > 0) {
+                    atomicAdd(&visits[rt], n_visits);
+                }
+            }
+        }
+        // the last item of a ray tile writes its rays' answers
+        if (last_item(w, rt, slot)) {
+            float bt;
+            int bi;
+            unpack_best(atomicAdd(&w.best[r], 0ull), &bt, &bi);
+            t_out[r] = bt;
+            idx_out[r] = bi;
         }
     }
-    __pipeline_wait_prior(0);  // the copy still in flight, if any
-    t_out[r] = bt;
-    idx_out[r] = bi;
-    if (visits != nullptr && threadIdx.x == 0) visits[rt] = n_visits;
 }
 
 template <bool BW, bool AH, bool CULL>
 static int launch(const float* tris, int T, const int* keys, int n_keys,
                   int idx_mask, const float* rays, int n, int n_sub,
                   const float* sub_boxes, float* t_out, int* idx_out,
-                  int* visits, cudaStream_t stream) {
-    const int smem = 2 * (BW ? 12 : 9) * STREAM_T * (int)sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        stream_sweep_kernel<BW, AH, CULL>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                  int* visits, Work w, cudaStream_t stream) {
+    const int n_rt = n / TILE_N;
+    cudaError_t err = cudaMemsetAsync(w.counters, 0, 3 * sizeof(int), stream);
     if (err != cudaSuccess) return (int)err;
-    stream_sweep_kernel<BW, AH, CULL><<<n / TILE_N, TILE_N, smem, stream>>>(
+    stream_plan<AH><<<n_rt, TILE_N, 0, stream>>>(
+        keys, n_keys, idx_mask, rays, n, t_out, idx_out, visits, w);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || n_keys == 0) return (int)err;
+    // the sweep runs whatever the plan left, without a host read of the
+    // counts: as many blocks as the card holds at once, but no more
+    // than the items there can be
+    static int resident = 0;
+    if (resident == 0) {
+        resident = resident_blocks(stream_sweep_items<BW, AH, CULL>, TILE_N);
+    }
+    const long long cap = (long long)n_rt * STREAM_Q *
+                          ((n_keys + STREAM_S - 1) / STREAM_S);
+    const int grid = resident < cap ? resident : (int)cap;
+    if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
+    stream_sweep_items<BW, AH, CULL><<<grid, TILE_N, 0, stream>>>(
         tris, T, keys, n_keys, idx_mask, rays, n, n_sub, sub_boxes, t_out,
-        idx_out, visits);
+        idx_out, visits, w);
     return (int)cudaGetLastError();
 }
 
+// best: (N,) uint64; items: (n_rt, 4) int32; counters: 3 int32;
+// pending: (2 n_rt,) int32 (the pending counts, then the published
+// skylines); none needs initialising.
 extern "C" int stream_sweep_launch(const float* tris, int use_bw, int T,
                                    const int* keys, int n_keys, int idx_bits,
                                    const float* rays, int n, float* t_out,
                                    int* idx_out, int any_hit, int n_sub,
                                    const float* sub_boxes, int* visits,
+                                   unsigned long long* best, int* items,
+                                   int* counters, int* pending,
                                    cudaStream_t stream) {
     const int idx_mask = (1 << idx_bits) - 1;
-    if (n < TILE_N) return (int)cudaGetLastError();
+    if (n < TILE_N) return (int)cudaErrorInvalidValue;
     // culling reads the Moller-Trumbore rows' boxes only
     if (n_sub < 1 || STREAM_T % n_sub || (n_sub > 1 && (use_bw || !sub_boxes)))
         return (int)cudaErrorInvalidValue;
+    const Work w{best, reinterpret_cast<int4*>(items), counters, pending,
+                 pending + n / TILE_N};
 #define ARGS tris, T, keys, n_keys, idx_mask, rays, n, n_sub, sub_boxes, \
-             t_out, idx_out, visits, stream
+             t_out, idx_out, visits, w, stream
     if (use_bw) {
         return any_hit ? launch<true, true, false>(ARGS)
                        : launch<true, false, false>(ARGS);

@@ -67,9 +67,11 @@ def _declare(lib):
         vp]
     lib.lane_keys_launch.argtypes = [vp, ci, ci, vp, ci, vp, vp, vp]
     lib.stream_sweep_launch.argtypes = [
-        vp, ci, ci, vp, ci, ci, vp, ci, vp, vp, ci, ci, vp, vp, vp]
+        vp, ci, ci, vp, ci, ci, vp, ci, vp, vp, ci, ci, vp, vp, vp, vp, vp,
+        vp, vp]
     lib.mt_sweep_launch.argtypes = [
-        vp, ci, vp, vp, vp, vp, ci, vp, ci, vp, vp, vp, vp, ci, ci, vp, vp]
+        vp, ci, vp, vp, vp, vp, ci, vp, ci, vp, vp, vp, vp, ci, ci, vp, vp,
+        vp, vp, vp, vp]
     for fn in (lib.entry_min_launch, lib.resident_sweep_launch,
                lib.lane_keys_launch, lib.stream_sweep_launch,
                lib.mt_sweep_launch):
