@@ -15,7 +15,10 @@ its kernels:
   K2, K3): each kernel against its plain PyTorch version on the card at
   the path's shapes, a small render on the card against the CPU, and
   the full 1280x720, 32 spp, 524,288-lane render through
-  `render_to_files`.  K2 (BW and MT closest, BW any-hit) must give the
+  `render_to_files`.  K1 and K3 are held bit for bit on 131,072 check
+  rays and on what a steady 524,288-lane step hands them
+  (scripts/keys_inputs.py), each with the ray-box tests its gate on
+  groups of consecutive boxes does and needs beside rays x boxes.  K2 (BW and MT closest, BW any-hit) must give the
   plain version's hits, triangles and t bits; each query prints its
   visits per ray tile over both of K2's passes (mean, p50, p99, max,
   the ray tiles above 4x the mean) and the work items its first pass
@@ -35,7 +38,8 @@ its kernels:
 * the batch driver on the ajax composition (the 541,696-triangle
   procedural stand-in for the pa2/pa5 ajax scan, streamed layout, K1,
   K3, K5): the kernels against their plain versions on the slab
-  bounds and 32,768 camera and shadow rays, K5 any-hit also on one
+  bounds and 32,768 camera and shadow rays (K1 and K3 also on what one
+  whole whitted batch hands them), K5 any-hit also on one
   whole 131,072-sample whitted batch's shadow rays in the order
   `traverse.occluded` sorts them (and unsorted), each with the bound of
   the slabs it needed; K5 must give the plain version's hits,
@@ -369,14 +373,18 @@ def mt_needed(sd, rays, answer, any_hit: bool):
 
 
 def time_ms(fn, reps: int = 3) -> float:
-    """Mean milliseconds per call on the card (CUDA events, after one
-    warm-up call)."""
+    """Mean device milliseconds per call (CUDA events, after one warm-up
+    call).  The calls are enqueued while the card still spins on an
+    earlier kernel, so the time between the events holds no wait for the
+    host: a wrapper's enqueue takes tens of microseconds, which is more
+    than K1 and K3 run."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
         enable_timing=True)
+    torch.cuda._sleep(4_000_000)  # ~2 ms: the queue fills behind it
     start.record()
     for _ in range(reps):
         fn()
@@ -439,13 +447,89 @@ def wavefront_rays(scene, sd, dev, n_lanes: int):
     return rays, shadow
 
 
-def check_kernels(sd, rays, shadow) -> dict:
-    """K1, K2 and K3 against their plain versions on the same rays;
+def key_rows(kernel: str, inputs: dict) -> dict:
+    """K1 ("entry_min") or K3 ("lane_keys") against its plain version on
+    each of `inputs` {label: (bounds, rays)}, bit for bit (the plain
+    version runs on slices of 65,536 rays: its temporaries grow with rays
+    x boxes).  Returns {label: row}: the device time, the plain version's,
+    and three counts of ray-box tests, from the inputs alone
+    (keys_inputs.gate_counts): `tests_dense` rays x boxes; `tests_needed`,
+    what a gate on the kernel's groups of consecutive boxes leaves when a
+    group's boxes are tested for the rays that enter its box, which the
+    bound counts; `tests`, what the kernel does (K1 the same; K3, which
+    gates per warp of 32 lanes, the boxes of every group that a lane of
+    the warp enters)."""
+    import torch
+    from keys_inputs import gate_counts
+    from nori_tpu_torch.accel import sweep
+
+    k1 = kernel == "entry_min"
+    fn, plain = ((sweep.entry_min, sweep.entry_min_plain) if k1 else
+                 (sweep.lane_keys, sweep.lane_keys_plain))
+    rows = {}
+    for label, (bounds, rays) in inputs.items():
+        n, n_tt = rays.shape[1], bounds.shape[0]
+
+        def sliced():
+            parts = [plain(bounds, rays[:, c:c + 65536].contiguous())
+                     for c in range(0, n, 65536)]
+            return (torch.cat(parts) if k1 else
+                    tuple(torch.cat(p) for p in zip(*parts)))
+
+        got, ref = fn(bounds, rays), sliced()
+        torch.cuda.synchronize()
+        err = 0.0
+        if k1:
+            bad = got.view(torch.int32) != ref.view(torch.int32)
+            fin = torch.isfinite(ref)
+            err = float((got - ref)[fin].abs().max()) if bool(fin.any()) else 0.0
+        else:
+            bad = (got[0] != ref[0]) | (got[1] != ref[1])
+        if bool(bad.any()):
+            raise AssertionError(
+                f"{kernel} differs from its plain version on {label} in "
+                f"{int(bad.sum())} of {bad.numel()} entries")
+        del got, ref, bad
+        group = sweep.KEY_GROUP if k1 else sweep.lane_group(n_tt)
+        needed = tested = dense = float(n) * n_tt
+        if group:
+            c = gate_counts(bounds, rays, (group,))[f"g{group}"]
+            needed = c["per_ray"] * n
+            tested = needed if k1 else c["per_warp"] * n
+        out_words = n // 256 * n_tt if k1 else 2 * n
+        rows[label] = dict(
+            rays=n, boxes=n_tt, group=group, max_abs_err=err,
+            ms=time_ms(lambda: fn(bounds, rays), 10),
+            plain_ms=time_ms(sliced, 1), tests=tested, tests_needed=needed,
+            tests_dense=dense,
+            **bound(float(SLAB_OPS) * needed,
+                    4.0 * (8 * n_tt + 8 * n + out_words)))
+        log(f"{KERNELS[kernel][0]} {kernel} {label} ({n} rays x {n_tt} "
+            f"boxes): bit-exact; {rows[label]['ms']:.4f} ms vs plain "
+            f"{rows[label]['plain_ms']:.3f} ms, bound "
+            f"{rows[label]['bound_ms']:.4f} ms; groups of {group}: "
+            f"{tested / n:.1f} tests per ray done, {needed / n:.1f} needed, "
+            f"of {n_tt} dense")
+    return rows
+
+
+def key_record(kernel: str, rows: dict, main: str) -> dict:
+    """The JSON record of K1 or K3 from key_rows' rows: the numbers of
+    row `main`, every row under by_input."""
+    r = rows[main]
+    return record(kernel, r["ms"], r["plain_ms"],
+                  max(x["max_abs_err"] for x in rows.values()), r["ops"],
+                  r["bytes"], by_input=rows)
+
+
+def check_kernels(sd, rays, shadow, k1, k3) -> dict:
+    """K1, K2 and K3 against their plain versions on the same rays, K1
+    and K3 also on `k1` and `k3`, keys_inputs.room_inputs' {label:
+    (bounds, rays)} (the check rays and a steady 524,288-lane step's);
     returns {kernel name: JSON record} (launch counts filled in
     later)."""
     import torch
     from nori_tpu_torch.accel import sweep
-    from nori_tpu_torch.wavefront import _coarsen_bounds, key_coarsen
 
     tb = sd.tri_tile_bounds
     n, n_tt, T = rays.shape[1], tb.shape[0], sd.tri_bw.shape[1]
@@ -456,25 +540,8 @@ def check_kernels(sd, rays, shadow) -> dict:
     records = {}
 
     # K1: bit-exact
-    err = 0.0
-    for r in (rays, shadow):
-        got, ref = sweep.entry_min(tb, r), sweep.entry_min_plain(tb, r)
-        torch.cuda.synchronize()
-        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
-            fin = torch.isfinite(ref)
-            n_bad = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
-            raise AssertionError(
-                f"entry_min differs from its plain version in {n_bad} of "
-                f"{ref.numel()} entries (max |diff| on finite "
-                f"{float((got - ref)[fin].abs().max())})")
-        err = max(err, float((got - ref)[torch.isfinite(ref)].abs().max()))
-    records["entry_min"] = record(
-        "entry_min", time_ms(lambda: sweep.entry_min(tb, rays)),
-        time_ms(lambda: sweep.entry_min_plain(tb, rays)), err,
-        float(SLAB_OPS) * n * n_tt, 4.0 * (8 * n_tt + 8 * n + n // 256 * n_tt))
-    log(f"K1 entry_min: bit-exact on both ray sets; "
-        f"{records['entry_min']['ms']:.3f} ms vs plain "
-        f"{records['entry_min']['plain_ms']:.3f} ms")
+    records["entry_min"] = key_record("entry_min", key_rows("entry_min", k1),
+                                      "room check closest")
 
     # K2: hit masks equal, idx equal except at ties, t within rtol 1e-6
     err = 0.0
@@ -543,21 +610,8 @@ def check_kernels(sd, rays, shadow) -> dict:
         by_query=timing)
 
     # K3: bit-exact, on the coarsened bounds the wavefront sorts by
-    kb = _coarsen_bounds(tb, key_coarsen(sd.tri_packed.shape[0], n_tt))
-    k1, k2 = sweep.lane_keys(kb, rays)
-    p1, p2 = sweep.lane_keys_plain(kb, rays)
-    torch.cuda.synchronize()
-    if not (torch.equal(k1, p1) and torch.equal(k2, p2)):
-        raise AssertionError(
-            f"lane_keys differs from its plain version on "
-            f"{int(((k1 != p1) | (k2 != p2)).sum())} lanes")
-    records["lane_keys"] = record(
-        "lane_keys", time_ms(lambda: sweep.lane_keys(kb, rays)),
-        time_ms(lambda: sweep.lane_keys_plain(kb, rays)), 0.0,
-        float(SLAB_OPS) * n * kb.shape[0], 4.0 * (8 * kb.shape[0] + 10 * n))
-    log(f"K3 lane_keys: bit-exact on {kb.shape[0]} coarsened groups; "
-        f"{records['lane_keys']['ms']:.3f} ms vs plain "
-        f"{records['lane_keys']['plain_ms']:.3f} ms")
+    records["lane_keys"] = key_record("lane_keys", key_rows("lane_keys", k3),
+                                      "room check")
     return records
 
 
@@ -1020,60 +1074,34 @@ def compare_sweep(label: str, got, ref, any_hit: bool,
 
 
 def check_ajax_kernels(dev) -> dict:
-    """K1 and K3 on the 1,058 slab bounds and K5 (BW closest, MT
-    closest, BW any-hit) against their plain versions; returns
-    {kernel name: record}."""
+    """K1 and K3 on the 1,058 slab bounds (the check rays and one whole
+    whitted batch's) and K5 (BW closest, MT closest, BW any-hit) against
+    their plain versions; returns {kernel name: record}."""
     import torch
     from nori_tpu_torch.accel import sweep
 
-    scene = ajax_scene(AJAX_SIZE, AJAX_SIZE, 4, "whitted")
-    sd = scene.compile(dev)
+    from keys_inputs import ajax_inputs
+
+    # the 32,768 check rays spread evenly over the image, and what one
+    # whole whitted batch hands K1 and K3
+    sd, k1, k3 = ajax_inputs(sys.modules[__name__], dev)
     tb = sd.tri_tile_bounds
     if sd.tri_bw.shape != (16, AJAX_TRIS) or tb.shape[0] != AJAX_SLABS:
         raise AssertionError(f"ajax layout {tuple(sd.tri_bw.shape)}, "
                              f"{tb.shape[0]} slabs")
-    # AJAX_CHECK_LANES work items spread evenly over the image
-    n = AJAX_CHECK_LANES
-    w, h = scene.camera.output_size
-    q = torch.arange(n, dtype=torch.int64, device=dev) * (
-        w * h * scene.sampler.sample_count // n)
-    rays, shadow = ajax_rays(scene, sd, dev, q)
+    rays, shadow = k1["ajax check closest"][1], k1["ajax check shadow"][1]
+    n = rays.shape[1]
     live = int((rays[6] <= rays[7]).sum())
     live_s = int((shadow[6] <= shadow[7]).sum())
     log(f"ajax check rays: {rays.shape[1]} camera ({live} live), "
         f"{live_s} live shadow; {tb.shape[0]} slabs of 512")
     out = {}
-
-    for r in (rays, shadow):
-        got, ref = sweep.entry_min(tb, r), sweep.entry_min_plain(tb, r)
-        torch.cuda.synchronize()
-        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
-            raise AssertionError("entry_min differs from its plain version "
-                                 "on the slab bounds")
+    rows = key_rows("entry_min", k1)
+    out["entry_min"] = dict(rows["ajax check closest"], by_input=rows)
+    rows = key_rows("lane_keys", k3)
+    out["lane_keys"] = dict(rows["ajax check shadow"], by_input=rows)
+    del k1, k3, rows
     n_tt, T = tb.shape[0], sd.tri_packed.shape[1]
-    out["entry_min"] = dict(
-        max_abs_err=0.0, ms=time_ms(lambda: sweep.entry_min(tb, rays)),
-        plain_ms=time_ms(lambda: sweep.entry_min_plain(tb, rays)),
-        **bound(float(SLAB_OPS) * n * n_tt,
-                4.0 * (8 * n_tt + 8 * n + n // 256 * n_tt)))
-    log(f"K1 entry_min (slabs): bit-exact; {out['entry_min']['ms']:.3f} ms "
-        f"vs plain {out['entry_min']['plain_ms']:.3f} ms")
-
-    for r in (rays, shadow):
-        k1, k2 = sweep.lane_keys(tb, r)
-        p1, p2 = sweep.lane_keys_plain(tb, r)
-        torch.cuda.synchronize()
-        if not (torch.equal(k1, p1) and torch.equal(k2, p2)):
-            raise AssertionError(
-                f"lane_keys differs from its plain version on the slab "
-                f"bounds on {int(((k1 != p1) | (k2 != p2)).sum())} lanes")
-    out["lane_keys"] = dict(
-        max_abs_err=0.0, ms=time_ms(lambda: sweep.lane_keys(tb, shadow)),
-        plain_ms=time_ms(lambda: sweep.lane_keys_plain(tb, shadow)),
-        **bound(float(SLAB_OPS) * n * n_tt, 4.0 * (8 * n_tt + 10 * n)))
-    log(f"K3 lane_keys ({tb.shape[0]} slabs): bit-exact; "
-        f"{out['lane_keys']['ms']:.3f} ms vs plain "
-        f"{out['lane_keys']['plain_ms']:.3f} ms")
 
     err, timing, uncut = 0.0, {}, {}
     for label, use_bw, r, any_hit in (
@@ -1485,15 +1513,16 @@ def main() -> int:
         print(card)
         return 0
 
-    from nori_tpu_torch.scenes_builtin import living_room
+    # the inputs of the two key kernels, shared with scripts/keys_*.py
+    sys.path.insert(0, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    from keys_inputs import room_inputs
 
-    cfg = FULL
     with phase("living room: kernel checks"):
-        scene = living_room(cfg["width"], cfg["height"], cfg["spp"],
-                            detail=cfg["detail"])
-        sd = scene.compile(dev)
-        rays, shadow = wavefront_rays(scene, sd, dev, CHECK_LANES)
-        records = check_kernels(sd, rays, shadow)
+        _, sd, k1, k3 = room_inputs(sys.modules[__name__], dev)
+        rays, shadow = k1["room check closest"][1], k1["room check shadow"][1]
+        records = check_kernels(sd, rays, shadow, k1, k3)
+    del k1, k3
     with phase("living room: K4, K2-mxu and K6 checks"):
         records.update(check_merged_mxu_k6(sd, rays, shadow))
     with phase("living room: K6 path"):

@@ -55,6 +55,13 @@ TILE_U = 128
 #: (csrc/common.cuh STREAM_S, MT_S)
 STREAM_S = 2
 MT_S = 4
+#: consecutive boxes under one gate box of the key kernels: K1's group,
+#: and K3's below LANE_WIDE boxes, twice that from there on
+#: (csrc/common.cuh KEY_GROUP, LANE_GROUP; PERF.md has the counts and
+#: times they were chosen by)
+KEY_GROUP = 16
+LANE_GROUP = 8
+LANE_WIDE = 256
 #: ray-triangle pairs per chunk of the dense plain sweep (bounds its
 #: temporaries to 16 MB each)
 _PLAIN_PAIRS = 1 << 22
@@ -150,26 +157,52 @@ def entry_min_plain(tile_bounds, rays):
     return torch.amin(entry, dim=1)
 
 
-def entry_min(tile_bounds, rays):
-    """K1 wrapper: (n_tt, 8) bounds, (8, N) rays -> (n_rt, n_tt) f32.
+def _pack_entry_keys(entry, idx_bits: int):
+    """(n_rt, n_tt) entry distances -> int32 candidate keys: the float's
+    bits with the box index in the low idx_bits bits."""
+    mask = (1 << idx_bits) - 1
+    idx = torch.arange(entry.shape[1], dtype=torch.int32,
+                       device=entry.device)
+    return (entry.view(torch.int32) & ~mask) | idx[None, :]
+
+
+def _check_bounds(tile_bounds, device):
+    _check(tile_bounds, "tile_bounds", torch.float32, 2, device)
+    if tile_bounds.shape[1] != 8:
+        raise ValueError(f"tile_bounds: expected (n_tt, 8), got "
+                         f"{tuple(tile_bounds.shape)}")
+    if tile_bounds.data_ptr() % 16:
+        raise ValueError("tile_bounds: rows must be 16-byte aligned")
+
+
+def entry_min(tile_bounds, rays, idx_bits: int | None = None):
+    """K1 wrapper: (n_tt, 8) bounds, (8, N) rays -> (n_rt, n_tt) f32; with
+    idx_bits, the int32 candidate keys (bits & ~mask) | box index that
+    ray_tile_entry_keys sorts, stored by the kernel itself.
 
     Kernel: csrc/entry_min.cu, replacing pallas_mt.py `_entry_kernel`.
-    Bound on the H100 by the slab-test arithmetic (n_rays * n_tt
-    tests); one block per ray tile keeps its rays in shared memory and
-    each thread owns whole output entries, so no reduction is needed.
+    Bound on the H100 by the arithmetic of the slab tests.  A block takes a
+    ray tile and a chunk of 256 boxes; each warp tests its 32 rays
+    against the box around every KEY_GROUP consecutive boxes and, only
+    for a group that a ray enters, that ray against the group's boxes,
+    one box per lane.  The gate is exact (csrc/common.cuh group_box).
     """
     _check_rays(rays)
-    _check(tile_bounds, "tile_bounds", torch.float32, 2, rays.device)
-    if tile_bounds.shape[1] != 8:
-        raise ValueError("tile_bounds: expected (n_tt, 8)")
+    _check_bounds(tile_bounds, rays.device)
+    if idx_bits is not None and not 1 <= idx_bits <= 23:
+        raise ValueError(f"idx_bits: expected 1..23, got {idx_bits}")
     if rays.device.type == "cpu":
-        return entry_min_plain(tile_bounds, rays)
+        entry = entry_min_plain(tile_bounds, rays)
+        return entry if idx_bits is None else _pack_entry_keys(entry,
+                                                               idx_bits)
     n_tt, n = tile_bounds.shape[0], rays.shape[1]
-    out = torch.empty((n // TILE_N, n_tt), dtype=torch.float32,
-                      device=rays.device)
+    out = torch.empty(
+        (n // TILE_N, n_tt), device=rays.device,
+        dtype=torch.float32 if idx_bits is None else torch.int32)
     lib = cuda_build.load()
-    err = lib.entry_min_launch(tile_bounds.data_ptr(), rays.data_ptr(),
-                               out.data_ptr(), n_tt, n, _stream(rays.device))
+    err = lib.entry_min_launch(
+        tile_bounds.data_ptr(), rays.data_ptr(), out.data_ptr(), n_tt, n,
+        0 if idx_bits is None else (1 << idx_bits) - 1, _stream(rays.device))
     entry_min.launches += 1
     _raise_on(err, "entry_min")
     return out
@@ -188,12 +221,9 @@ def ray_tile_entry_keys(tile_bounds, rays):
     rounded-down entry bound.  Non-candidates pack to inf/NaN bit
     patterns that sort last.  Returns ((n_rt, n_tt) int32, idx_bits).
     """
-    n_tt = tile_bounds.shape[0]
-    idx_bits = max(1, (n_tt - 1).bit_length())
-    mask = (1 << idx_bits) - 1
-    bits = entry_min(tile_bounds, rays).view(torch.int32)
-    idx = torch.arange(n_tt, dtype=torch.int32, device=rays.device)
-    keys = torch.sort((bits & ~mask) | idx[None, :], dim=1).values
+    idx_bits = max(1, (tile_bounds.shape[0] - 1).bit_length())
+    keys = torch.sort(entry_min(tile_bounds, rays, idx_bits=idx_bits),
+                      dim=1).values
     return keys.contiguous(), idx_bits
 
 
@@ -578,21 +608,29 @@ def lane_keys_plain(tile_bounds, rays):
     return key1.to(torch.int32), coarse.to(torch.int32)
 
 
+def lane_group(n_tt: int) -> int:
+    """Boxes per gate group of K3 on n_tt boxes: LANE_GROUP, twice that
+    from LANE_WIDE boxes on, none where there are not two groups."""
+    if n_tt < 2 * LANE_GROUP:
+        return 0
+    return LANE_GROUP if n_tt < LANE_WIDE else 2 * LANE_GROUP
+
+
 def lane_keys(tile_bounds, rays):
     """K3 wrapper: (n_tt, 8) bounds, (8, N) rays -> (key1, key2), each
     (N,) int32.
 
     Kernel: csrc/lane_keys.cu, replacing pallas_mt.py
-    `_lane_key_kernel`.  Bound on the H100 by the slab tests (n_lanes *
-    n_tt); one thread per lane walks the tile boxes, staged once per
-    block in shared memory, and builds the masks as integers.
+    `_lane_key_kernel`.  Bound on the H100 by the arithmetic of the
+    slab tests; one thread per lane walks the tile boxes, staged once per
+    block in shared memory with their coarse bits, and builds the masks
+    as integers.  A warp skips lane_group(n_tt) consecutive boxes when
+    none of its lanes enters the box around them (exact: csrc/common.cuh
+    group_box).
     """
     _check_rays(rays)
-    _check(tile_bounds, "tile_bounds", torch.float32, 2, rays.device)
+    _check_bounds(tile_bounds, rays.device)
     n_tt, n = tile_bounds.shape[0], rays.shape[1]
-    if tile_bounds.shape[1] != 8:
-        raise ValueError(f"tile_bounds: expected (n_tt, 8), got "
-                         f"{tuple(tile_bounds.shape)}")
     if rays.device.type == "cpu":
         return lane_keys_plain(tile_bounds, rays)
     k1 = torch.empty((n,), dtype=torch.int32, device=rays.device)
@@ -600,7 +638,7 @@ def lane_keys(tile_bounds, rays):
     lib = cuda_build.load()
     err = lib.lane_keys_launch(
         tile_bounds.data_ptr(), n_tt, -(-n_tt // 128) * 128,
-        rays.data_ptr(), n, k1.data_ptr(), k2.data_ptr(),
+        rays.data_ptr(), n, k1.data_ptr(), k2.data_ptr(), lane_group(n_tt),
         _stream(rays.device))
     lane_keys.launches += 1
     _raise_on(err, "lane_keys")

@@ -19,6 +19,14 @@ set them between renders:
                  K4) traces the next bounce's closest hits and this
                  step's shadow rays; NEE modes on resident scenes only.
 
+and, read when a wavefront stepper is built:
+
+  SORT_KEY_COARSEN  the wavefront's sort keys (kernel K3) are taken on
+                 tile boxes grouped this many at a time; None takes
+                 wavefront.key_coarsen's rule (8 on streamed scenes, 4
+                 above 256 tiles, else 1), a number pins
+                 max(1, int(number)).  Lane order changes no sample.
+
 The defaults are the JAX package's, less its auto heuristics
 (`auto_merged_sweep`, visit widths, key caps), which are TPU
 measurements: MERGED_SWEEP is False, which changes no sample value.
@@ -30,3 +38,4 @@ USE_BW_SWEEP: bool = True
 USE_MXU_SWEEP: bool = False
 STREAM_CULL_T: int = 0
 MERGED_SWEEP: bool = False
+SORT_KEY_COARSEN: int | None = None

@@ -37,6 +37,16 @@
 #define STREAM_S 2
 #define MT_S 4
 
+// The key kernels (entry_min.cu, lane_keys.cu) gate their ray-box tests
+// by a box around KEY_GROUP (K1) or LANE_GROUP (K3; twice that on many
+// boxes) consecutive boxes: the boxes come in BVH order, so neighbours
+// are close in space.  Both were chosen from the tests a gate leaves on
+// the renders' rays and from the times on the card (PERF.md).
+#ifndef KEY_GROUP  // scripts/keys_tune.py builds 32 and 0 (no gate) too
+#define KEY_GROUP 16
+#endif
+#define LANE_GROUP 8
+
 #define NW (TILE_N / 32)  // warps per block
 
 // 1/c with |c| clamped away from zero, keeping the sign (the JAX
@@ -60,6 +70,61 @@ __device__ __forceinline__ bool slab(
     float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
     *tn_out = tn;
     return (tn <= tf) && (tf >= mint) && (tn <= maxt);
+}
+
+// The same test on a box and a ray held as two 16-byte words each, as
+// the key kernels stage them: a bounds row as it lies in memory, ba =
+// [bmin xyz | bmax x], bb = [bmax yz | pad 2], and a ray as ra = [o xyz |
+// mint], rb = [1/d xyz | maxt] (staged_ray).
+__device__ __forceinline__ bool slab4(float4 ba, float4 bb, float4 ra,
+                                      float4 rb, float* tn_out) {
+    const float b[6] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y};
+    return slab(b, ra.x, ra.y, ra.z, rb.x, rb.y, rb.z, ra.w, rb.w, tn_out);
+}
+
+// Ray r of the (8, n) rays as slab4 takes it, the direction inverted.
+__device__ __forceinline__ void staged_ray(const float* rays, int n, int r,
+                                           float4* ra, float4* rb) {
+    *ra = make_float4(rays[0 * n + r], rays[1 * n + r], rays[2 * n + r],
+                      rays[6 * n + r]);
+    *rb = make_float4(safe_inv(rays[3 * n + r]), safe_inv(rays[4 * n + r]),
+                      safe_inv(rays[5 * n + r]), rays[7 * n + r]);
+}
+
+// A box that no min or max of boxes notices: what a lane past the last
+// box contributes to its group's box.
+__device__ __forceinline__ void empty_box(float4* ba, float4* bb) {
+    const float inf = __int_as_float(0x7f800000);
+    *ba = make_float4(inf, inf, inf, -inf);
+    *bb = make_float4(-inf, -inf, 0.0f, 0.0f);
+}
+
+// The box around the boxes (ba, bb) of each aligned run of G lanes (G a
+// power of two up to 32), in every lane of the run; bb's pad words are
+// zero.  Every lane of the warp must call it.
+//
+// Such a group box gates its boxes exactly: it contains each of them,
+// and float32 subtraction of the same origin, multiplication by the same
+// reciprocal, min and max are all monotone, so the group's entry distance
+// is <= and its exit distance >= the box's as computed, and a ray for
+// which the box is a candidate (tn <= tf, tf >= mint, tn <= maxt) finds
+// the group a candidate too.  That holds for finite boxes and rays, where
+// no product is a NaN (safe_inv is finite and never zero).
+template <int G>
+__device__ __forceinline__ void group_box(float4* ba, float4* bb) {
+    float lx = ba->x, ly = ba->y, lz = ba->z;
+    float hx = ba->w, hy = bb->x, hz = bb->y;
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) {
+        lx = fminf(lx, __shfl_xor_sync(0xffffffffu, lx, o));
+        ly = fminf(ly, __shfl_xor_sync(0xffffffffu, ly, o));
+        lz = fminf(lz, __shfl_xor_sync(0xffffffffu, lz, o));
+        hx = fmaxf(hx, __shfl_xor_sync(0xffffffffu, hx, o));
+        hy = fmaxf(hy, __shfl_xor_sync(0xffffffffu, hy, o));
+        hz = fmaxf(hz, __shfl_xor_sync(0xffffffffu, hz, o));
+    }
+    *ba = make_float4(lx, ly, lz, hx);
+    *bb = make_float4(hy, hz, 0.0f, 0.0f);
 }
 
 // max(x, +0): a non-positive x (and -0) becomes +0, as XLA's maximum

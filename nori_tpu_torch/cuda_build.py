@@ -61,11 +61,11 @@ def library_path() -> str:
 
 def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.entry_min_launch.argtypes = [vp, vp, vp, ci, ci, vp]
+    lib.entry_min_launch.argtypes = [vp, vp, vp, ci, ci, ci, vp]
     lib.resident_sweep_launch.argtypes = [
         vp, ci, ci, vp, ci, ci, vp, ci, vp, vp, ci, vp, vp, vp, vp, vp, vp,
         vp]
-    lib.lane_keys_launch.argtypes = [vp, ci, ci, vp, ci, vp, vp, vp]
+    lib.lane_keys_launch.argtypes = [vp, ci, ci, vp, ci, vp, vp, ci, vp]
     lib.stream_sweep_launch.argtypes = [
         vp, ci, ci, vp, ci, ci, vp, ci, vp, vp, ci, ci, vp, vp, vp, vp, vp,
         vp, vp]

@@ -105,7 +105,9 @@ class SceneData:
     """Flat render-ready scene: tensors on one device.
 
     Field for field the JAX package's SceneData, less `bsdf` (the
-    per-mesh BSDF table, which `mesh_attr` carries packed).
+    per-mesh BSDF table, which `mesh_attr` carries packed) and the wide
+    BVH (HOST_ONLY), which stays in `Scene.compile_arrays()` until a
+    module of the port traverses it.
     """
 
     # triangle soup, world space; padded rows are degenerate & far away
@@ -140,11 +142,6 @@ class SceneData:
     n_emissive: torch.Tensor    # () int32
     bbox_min: torch.Tensor      # (3,)
     bbox_max: torch.Tensor      # (3,)
-    # wide BVH (built for the triangle order; no traversal is ported)
-    bvh_child: torch.Tensor     # (NODES, W) int32
-    bvh_count: torch.Tensor     # (NODES, W) int32
-    bvh_bmin: torch.Tensor      # (NODES, W, 3)
-    bvh_bmax: torch.Tensor      # (NODES, W, 3)
 
     def to(self, device) -> "SceneData":
         return SceneData(**{
@@ -152,12 +149,19 @@ class SceneData:
             for f in dataclasses.fields(self)})
 
 
+#: arrays of `Scene.compile_arrays()` that no module of the port reads
+#: on the device: the wide BVH built for the triangle order ((NODES, W)
+#: int32 children and counts, (NODES, W, 3) box corners).  They are not
+#: uploaded.
+HOST_ONLY = ("bvh_child", "bvh_count", "bvh_bmin", "bvh_bmax")
+
+
 def scene_data_from_numpy(arrays: dict, device) -> SceneData:
     """SceneData on `device` from numpy arrays keyed by field name.
 
-    Keys the port does not carry (`bsdf`) are ignored, so
-    the dict read out of the JAX package's SceneData can be passed
-    as it is."""
+    Keys the port does not carry on the device (`bsdf`, HOST_ONLY) are
+    ignored, so the dict read out of the JAX package's SceneData can be
+    passed as it is."""
     return SceneData(**{
         f.name: torch.tensor(np.array(arrays[f.name], order="C"), device=device)
         for f in dataclasses.fields(SceneData)})

@@ -114,11 +114,14 @@ def _unpack_state(m, q0):
 
 def key_coarsen(n_rows: int, n_tt: int) -> int:
     """Sort-key tile grouping for a scene whose triangle operand has
-    n_rows rows and whose tile bounds n_tt boxes: the JAX package's
-    factors (auto_key_coarsen, wavefront.py:119-130), 8 for streamed
-    scenes (16-row operands), 4 above 256 tiles, else 1.  Kept for key
-    parity; parameters to re-measure on the H100, not Hopper
-    measurements."""
+    n_rows rows and whose tile bounds n_tt boxes: the factor pinned by
+    config.SORT_KEY_COARSEN if there is one (wavefront.py:200-203), else
+    the JAX package's factors (auto_key_coarsen, wavefront.py:119-130),
+    8 for streamed scenes (16-row operands), 4 above 256 tiles, else 1.
+    Kept for key parity; parameters to re-measure on the H100, not
+    Hopper measurements."""
+    if config.SORT_KEY_COARSEN is not None:
+        return max(1, int(config.SORT_KEY_COARSEN))
     if n_rows == 16:
         return 8
     return 4 if n_tt > 256 else 1
@@ -183,6 +186,9 @@ def make_wavefront_stepper(scene, mode: int, n_lanes: int, chunk: int,
         # triangle tiles to prune
         sort_rays = n_tt >= 16
     lane_iota = torch.arange(N, dtype=torch.int64, device=device)
+    # the boxes K3 takes its sort keys on depend on the scene alone:
+    # grouped once, at the first step that sorts by them
+    key_bounds = []
 
     def camera_ray(seed, q):
         pix = torch.clamp_max(q // spp, w * h - 1)
@@ -313,10 +319,10 @@ def make_wavefront_stepper(scene, mode: int, n_lanes: int, chunk: int,
             # (first tile | fine mask, coarse mask) from kernel K3,
             # sorted lexicographically as one int64 (wavefront.py:471)
             rays_pn, _ = pack_rays(o, d, mint, maxt)
-            kb = tb
-            if kc > 1 and n_tt >= 2 * kc:
-                kb = _coarsen_bounds(tb, kc)
-            sk1, sk2 = lane_keys(kb, rays_pn)
+            if not key_bounds:
+                key_bounds.append(_coarsen_bounds(tb, kc) if kc > 1
+                                  and n_tt >= 2 * kc else tb)
+            sk1, sk2 = lane_keys(key_bounds[0], rays_pn)
             sk1, sk2 = sk1[:N].to(torch.int64), sk2[:N].to(torch.int64)
             k1 = torch.where(done, KEY_DONE, torch.where(active, sk1,
                                                          KEY_IDLE))
@@ -595,4 +601,6 @@ def render_wavefront(scene, spp: int | None = None, seed: int = 0,
         "occupancy": total_rays / max(2 * lane_steps_total, 1),
         "merged": merged,
         "device": str(device),
+        # every chunk ran: the port has no max_chunks to cut a render yet
+        "done": True,
     }
