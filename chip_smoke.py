@@ -52,7 +52,19 @@ its kernels:
 * sub-slab culling (config.STREAM_CULL_T = 128 on the Moller-Trumbore
   operand, K5-cull): the kernel against its plain version and against
   K5 uncut, with its visits in sub-blocks and its work items, then
-  ajax_normals culled against the uncut render.
+  ajax_normals culled against the uncut render;
+* checkpoint/resume (K1, K2, K3): the full living-room render in four
+  chunks, uncut, then cut after two chunks with a checkpoint, a preview
+  PNG and an on_chunk callback, then resumed to the uncut image's SHA-1
+  and ray count;
+* the statistical harness through the CLI's test root: the microfacet
+  t-test of ttest-microfacet.xml, furnace t-tests of path_mats,
+  path_ems, path_mis and whitted (and the path_mis furnace held to a
+  wrong mean, which must fail), chi2test on diffuse and three microfacet
+  roughnesses, warptest on every warp;
+* the scan and BVH backends (config.accel_mode): closest and any-hit
+  queries on the living room's check rays under scan, bvh and the
+  sweeps, each timed, then a small render under bvh against the sweeps'.
 
 Each path resets every kernel's launch count just before it runs and
 reads the counts just after.  Any failure raises and exits non-zero;
@@ -134,6 +146,16 @@ AJAX_PARITY = (("normals", 32, 2, "render"), ("whitted", 32, 4, "render"),
 MXU_PARITY = dict(width=16, height=16, spp=2, detail=3, n_lanes=4096)
 #: sub-slab culling granularity of the K5-cull path
 CULL_T = 128
+#: the checkpointed full render runs in this many chunks
+CKPT_CHUNKS = 4
+#: ttest-microfacet.xml's angles and reference means (tests/test_bsdf.py)
+TTEST_ANGLES = (0, 45, 60, 80, 85)
+TTEST_REFERENCES = (0.207067, 0.215733, 0.247884, 0.430936, 0.519016)
+#: furnace t-tests: (integrator, mean radiance); albedo 0.5, radiance 1
+FURNACE = (("path_mats", 2.0), ("path_ems", 2.0), ("path_mis", 2.0),
+           ("whitted", 1.5))
+#: microfacet roughnesses of the chi^2 suite (beside a diffuse BSDF)
+CHI2_ALPHAS = (0.1, 0.5, 1.0)
 
 #: the H100 SXM's published peaks (NVIDIA's data sheet): fp32 outside
 #: the tensor cores, and device memory
@@ -1413,6 +1435,328 @@ def ajax_cull_renders(dev) -> dict:
                 uncut_seconds=st_u["seconds"])
 
 
+# ---------------------------------------------------------------------------
+# checkpoint/resume, the statistical harness, the scan and BVH backends
+# ---------------------------------------------------------------------------
+
+def checkpointed_renders(dev) -> dict:
+    """The full living-room render (FULL) in CKPT_CHUNKS chunks: A uncut;
+    B with a checkpoint, a preview, on_chunk and max_chunks=2, which must
+    stop half way with the checkpoint on disk; C the same call without
+    max_chunks, which must resume, finish, remove the checkpoint and give
+    A's image (SHA-1) and rays.  Returns the launches of B and C together
+    (the checkpointed render) and the seconds of each."""
+    import hashlib
+
+    import torch
+    from nori_tpu_torch.scenes_builtin import living_room
+    from nori_tpu_torch.wavefront import render_wavefront
+
+    cfg = FULL
+    total_q = cfg["width"] * cfg["height"] * cfg["spp"]
+    chunk = total_q // CKPT_CHUNKS
+    kw = dict(seed=SEED, n_lanes=cfg["n_lanes"], chunk=chunk, device=dev)
+
+    def render(**extra):
+        scene = living_room(cfg["width"], cfg["height"], cfg["spp"],
+                            detail=cfg["detail"])
+        img, st = render_wavefront(scene, **kw, **extra)
+        torch.cuda.synchronize()
+        return img, st, hashlib.sha1(img.tobytes()).hexdigest()
+
+    _, st_a, sha_a = render()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "living_room.ckpt")
+        pv = os.path.join(tmp, "living_room_preview.png")
+        fracs = []
+        extra = dict(checkpoint_path=ck, preview_path=pv,
+                     on_chunk=lambda img, f: fracs.append(f))
+        reset_launches()
+        _, st_b, _ = render(max_chunks=2, **extra)
+        if st_b["done"] or not os.path.exists(ck) or fracs != [0.25, 0.5]:
+            raise AssertionError(
+                f"cut render: done {st_b['done']}, checkpoint "
+                f"{os.path.exists(ck)}, fractions {fracs}")
+        png_bytes = os.path.getsize(pv)
+        _, st_c, sha_c = render(**extra)
+        launches = read_launches()
+        if not st_c["done"] or os.path.exists(ck) or fracs[2:] != [0.75, 1.0]:
+            raise AssertionError(
+                f"resumed render: done {st_c['done']}, checkpoint "
+                f"{os.path.exists(ck)}, fractions {fracs}")
+    log(f"checkpointed render {cfg['width']}x{cfg['height']} spp "
+        f"{cfg['spp']}, {CKPT_CHUNKS} chunks of {chunk}: uncut "
+        f"{st_a['seconds']:.2f} s; cut after 2 chunks {st_b['seconds']:.2f} s "
+        f"(rays {st_b['rays']}), resumed {st_c['seconds']:.2f} s; preview "
+        f"PNG {png_bytes} bytes; rays {st_c['rays']} vs {st_a['rays']}; "
+        f"SHA-1 {sha_c} vs {sha_a}")
+    log(f"  launches {launches}")
+    if sha_c != sha_a or st_c["rays"] != st_a["rays"]:
+        raise AssertionError("the resumed render differs from the uncut one")
+    for name in ("entry_min", "resident_sweep", "lane_keys"):
+        if launches[name] <= 0:
+            raise AssertionError(f"checkpointed render: {name} never launched")
+    return dict(launches=launches, uncut_seconds=st_a["seconds"],
+                cut_seconds=st_b["seconds"], resumed_seconds=st_c["seconds"],
+                preview_bytes=png_bytes, sha1=sha_a, rays=st_a["rays"])
+
+
+def write_furnace(directory: str) -> str:
+    """A closed cube [-1, 1]^3 with every face's geometric normal inward
+    (the camera sits at its centre); returns the OBJ's path."""
+    import numpy as np
+
+    corners = [(x, y, z) for x in (-1, 1) for y in (-1, 1) for z in (-1, 1)]
+    lines = [f"v {x} {y} {z}" for x, y, z in corners]
+    for axis in range(3):
+        for side in (-1, 1):
+            o = [i for i in range(3) if i != axis]
+            quad = []
+            for a, b in ((-1, -1), (-1, 1), (1, 1), (1, -1)):
+                p = [0, 0, 0]
+                p[axis], p[o[0]], p[o[1]] = side, a, b
+                quad.append(corners.index(tuple(p)) + 1)
+            p0, p1, p2 = (np.asarray(corners[i - 1]) for i in quad[:3])
+            if np.cross(p1 - p0, p2 - p0)[axis] * side > 0:
+                quad.reverse()
+            lines += [f"f {quad[0]} {quad[1]} {quad[2]}",
+                      f"f {quad[0]} {quad[2]} {quad[3]}"]
+    path = os.path.join(directory, "furnace.obj")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def furnace_xml(integrators, references, samples: int | None = None) -> str:
+    """A scene-mode t-test of `samples` camera rays per scene (None: the
+    plugin's default): one furnace (albedo 0.5, radiance 1, the OBJ of
+    write_furnace beside the XML) per integrator."""
+    scenes = "".join(f"""
+  <scene>
+    <integrator type="{integ}"/>
+    <camera type="perspective">
+      <float name="fov" value="10"/>
+      <integer name="width" value="1"/>
+      <integer name="height" value="1"/>
+    </camera>
+    <mesh type="obj">
+      <string name="filename" value="furnace.obj"/>
+      <bsdf type="diffuse"><color name="albedo" value="0.5, 0.5, 0.5"/></bsdf>
+      <emitter type="area"><color name="radiance" value="1, 1, 1"/></emitter>
+    </mesh>
+  </scene>""" for integ in integrators)
+    refs = ", ".join(str(r) for r in references)
+    count = ("" if samples is None else
+             f'\n  <integer name="sampleCount" value="{samples}"/>')
+    return (f'<test type="ttest">\n  <string name="references" '
+            f'value="{refs}"/>{count}{scenes}\n</test>\n')
+
+
+def run_cli(tmp: str, name: str, xml: str) -> tuple[int, float]:
+    """`python -m nori_tpu_torch <name>.xml --device cuda` in-process on
+    the XML written to tmp; returns (exit code, seconds)."""
+    from nori_tpu_torch.main import main as cli
+
+    path = os.path.join(tmp, name + ".xml")
+    with open(path, "w") as f:
+        f.write(xml)
+    t0 = time.time()
+    code = cli([path, "--device", "cuda"])
+    dt = time.time() - t0
+    log(f"{name}: exit {code}, {dt:.2f} s")
+    return code, dt
+
+
+def harness_ttests() -> dict:
+    """The t-test suites through the CLI's test root: the microfacet BSDF
+    means of ttest-microfacet.xml, the furnace for path_mats, path_ems,
+    path_mis (Li = 1 / (1 - 0.5) = 2) and whitted (1 + 0.5), each of which
+    must pass, and the path_mis furnace held to 2.2, which must fail.
+    Returns the furnace suite's launches and each suite's seconds."""
+    refs = ", ".join(str(r) for r in TTEST_REFERENCES)
+    angles = ", ".join(str(a) for a in TTEST_ANGLES)
+    bsdf_xml = f"""<test type="ttest">
+  <string name="angles" value="{angles}"/>
+  <string name="references" value="{refs}"/>
+  <bsdf type="microfacet">
+    <float name="alpha" value="0.1"/>
+    <float name="intIOR" value="1.5"/>
+    <float name="extIOR" value="1.000277"/>
+    <color name="kd" value="0.1, 0.2, 0.15"/>
+  </bsdf>
+</test>
+"""
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_furnace(tmp)
+        code, seconds["ttest-microfacet"] = run_cli(tmp, "ttest-microfacet",
+                                                    bsdf_xml)
+        if code != 0:
+            raise AssertionError("the microfacet t-test failed")
+        reset_launches()
+        code, seconds["ttest-furnace"] = run_cli(tmp, "ttest-furnace",
+                                                 furnace_xml(*zip(*FURNACE)))
+        launches = read_launches()
+        if code != 0:
+            raise AssertionError("a furnace t-test failed")
+        code, seconds["ttest-furnace-wrong"] = run_cli(
+            tmp, "ttest-furnace-wrong", furnace_xml(["path_mis"], [2.2]))
+        if code != 1:
+            raise AssertionError("the furnace held to 2.2 did not fail")
+    log(f"  furnace launches {launches}")
+    return dict(launches=launches, seconds=seconds)
+
+
+def harness_chi2_warps() -> dict:
+    """chi2test over diffuse and microfacet alpha 0.1, 0.5 and 1.0 at the
+    plugin's defaults (resolution 10, 5 tests, 1,000,000 samples each)
+    through the CLI, and warptest on every warp and the microfacet BRDF;
+    all must pass.  Returns the seconds of each."""
+    from nori_tpu_torch import warp, warptest
+
+    bsdfs = "".join(f'\n  <bsdf type="microfacet"><float name="alpha" '
+                    f'value="{a}"/></bsdf>' for a in CHI2_ALPHAS)
+    xml = (f'<test type="chi2test">\n  <boolean name="dumpFiles" '
+           f'value="false"/>\n  <bsdf type="diffuse"/>{bsdfs}\n</test>\n')
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        code, seconds["chi2test"] = run_cli(tmp, "chi2test", xml)
+    if code != 0:
+        raise AssertionError("a chi^2 test failed")
+    for name in [*warp.WARPS, "microfacet"]:
+        t0 = time.time()
+        ok, _, _ = warptest.run_warp_test(name, device="cuda")
+        seconds[f"warptest {name}"] = time.time() - t0
+        if not ok:
+            raise AssertionError(f"warptest {name} failed")
+    log(f"  warptest seconds {seconds}")
+    return seconds
+
+
+#: the backends compared on the check rays: (label, accel_mode, switches)
+BACKENDS = (("scan", "scan", {}), ("bvh", "bvh", {}),
+            ("sweeps mt", "pallas", {"USE_BW_SWEEP": False}),
+            ("sweeps", "pallas", {}))
+
+
+def on_boundary(hit, mint, maxt, tol):
+    """Hits within tol of mint, within max(tol, 1e-3 maxt) of maxt, or
+    within 1e-4 of a triangle edge in barycentric terms: where two
+    implementations of one triangle test, rounding in other orders, may
+    answer differently.  (A shadow ray stops 1e-4 of its length short of
+    its point on the light, integrators.base.shadow_ray_args, and where
+    it grazes the light, t moves by more than that.)"""
+    import torch
+
+    near_end = (((hit.t - mint).abs() <= tol)
+                | ((hit.t - maxt).abs() <= torch.maximum(tol, 1e-3 * maxt)))
+    w = 1.0 - hit.u - hit.v
+    edge = torch.minimum(torch.minimum(hit.u, hit.v), w) < 1e-4
+    return hit.valid & (near_end | edge)
+
+
+def backend_queries(sd, rays, shadow) -> dict:
+    """Closest and any-hit queries on the check rays under each of
+    BACKENDS, held to the scan's answers: bvh (the scan's arithmetic)
+    gives the same hit sets and any-hit answers; the sweeps, on the
+    Moller-Trumbore operand (a kernel rounding in its own order) and on
+    the Baldwin-Weber operand (the default: a different test, whose t
+    moves by ~1e-5 where a ray leaves a surface), the same but on rays
+    where either backend's nearest surface, or the scan's in the
+    interval widened as on_boundary allows, is on_boundary; both t
+    within tol = 1e-6 (t + max|o|) (the error of t scales with the
+    coordinates) and another triangle only at the same t (a shared edge,
+    or a coplanar triangle the walk reached first).  Differences on
+    boundary rays are counted.  Each backend's ms per query.  Returns
+    {label: ms and counts}."""
+    import torch
+    from nori_tpu_torch.accel import traverse
+
+    def args(r):
+        return r[0:3].T.contiguous(), r[3:6].T.contiguous(), r[6], r[7]
+
+    queries = {"closest": args(rays), "shadow": args(shadow)}
+    out, hits, occ = {}, {}, {}
+    for label, mode, extra in BACKENDS:
+        with switches(accel_mode=mode, **extra):
+            hits[label] = {q: traverse.intersect(sd, *a)
+                           for q, a in queries.items()}
+            occ[label] = traverse.occluded(sd, *queries["shadow"])
+            torch.cuda.synchronize()
+            out[label] = dict(
+                closest_ms=time_ms(
+                    lambda: traverse.intersect(sd, *queries["closest"]), 1),
+                any_hit_ms=time_ms(
+                    lambda: traverse.occluded(sd, *queries["shadow"]), 1))
+        log(f"backend {label}: closest {out[label]['closest_ms']:.3f} ms, "
+            f"any hit {out[label]['any_hit_ms']:.3f} ms on "
+            f"{rays.shape[1]} rays; {int(hits[label]['closest'].valid.sum())} "
+            f"hits, {int(occ[label].sum())} occluded")
+    tol, near = {}, {}
+    for q, (o, d, mint, maxt) in queries.items():
+        # t's rounding error scales with the coordinates (o - v0), not t
+        tol[q] = 1e-6 * (maxt.abs().clamp_max(1e6) + o.abs().amax(dim=1))
+        with switches(accel_mode="scan"):
+            near[q] = traverse.intersect(
+                sd, o, d, mint - tol[q],
+                maxt + torch.maximum(tol[q], 1e-3 * maxt))
+    for label, _, _ in BACKENDS[1:]:
+        edge = {q: on_boundary(near[q], a[2], a[3], tol[q])
+                | on_boundary(hits[label][q], a[2], a[3], tol[q])
+                for q, a in queries.items()}
+        h, ref = hits[label]["closest"], hits["scan"]["closest"]
+        both = h.valid & ref.valid
+        far = ((h.t - ref.t).abs() > tol["closest"]) & both
+        mask = h.valid != ref.valid
+        flips = occ[label] != occ["scan"]
+        counts = dict(hit_mask=int(mask.sum()), any_hit=int(flips.sum()),
+                      t_off=int(far.sum()), other_triangle_same_t=int(
+                          ((h.tri != ref.tri) & both & ~far).sum()))
+        bad = (mask | far) & ~edge["closest"]
+        counts["off_boundary"] = dict(
+            closest=int(bad.sum()),
+            any_hit=int((flips & ~edge["shadow"]).sum()))
+        log(f"{label} vs scan: {counts}")
+        out[label].update(counts)
+        if label == "bvh" and (counts["hit_mask"] or counts["any_hit"]
+                               or counts["t_off"]):
+            raise AssertionError("bvh: answers differ from the scan's")
+        for q, rows in (("closest", bad), ("shadow", flips & ~edge["shadow"])):
+            hq, rq, nq = hits[label][q], hits["scan"][q], near[q]
+            for i in torch.nonzero(rows).flatten()[:8].tolist():
+                o, d, mint, maxt = (a[i] for a in queries[q])
+                log(f"  {q} ray {i}: mint {float(mint)} maxt {float(maxt)}; "
+                    f"{label} t {float(hq.t[i])} tri {int(hq.tri[i])} uv "
+                    f"{float(hq.u[i])} {float(hq.v[i])}; scan t "
+                    f"{float(rq.t[i])} tri {int(rq.tri[i])}; nearest t "
+                    f"{float(nq.t[i])} tri {int(nq.tri[i])} uv "
+                    f"{float(nq.u[i])} {float(nq.v[i])}")
+        if any(counts["off_boundary"].values()):
+            raise AssertionError(f"{label}: answers differ from the scan's "
+                                 "off boundary hits")
+    return out
+
+
+def bvh_parity_render(dev):
+    """The PARITY render under accel_mode bvh against the sweeps' render,
+    both on the card, by `gate`; returns its launches and seconds."""
+    from nori_tpu_torch.scenes_builtin import living_room
+    from nori_tpu_torch.wavefront import render_wavefront
+
+    cfg = PARITY
+    out = {}
+    for mode in ("pallas", "bvh"):
+        with switches(accel_mode=mode):
+            scene = living_room(cfg["width"], cfg["height"], cfg["spp"],
+                                detail=cfg["detail"])
+            out[mode] = render_wavefront(scene, seed=SEED,
+                                         n_lanes=cfg["n_lanes"], device=dev)
+    (img_b, st_b), (img_s, st_s) = out["bvh"], out["pallas"]
+    gate(f"bvh parity render {cfg['width']}x{cfg['height']} spp {cfg['spp']}",
+         img_b, st_b, img_s, st_s, ("bvh", "sweeps"))
+    return dict(bvh_seconds=st_b["seconds"], sweeps_seconds=st_s["seconds"])
+
+
 def _kernel_group(name: str) -> str:
     """Group of a device operation in the whitted batch profile."""
     m = re.search(r"stream_sweep_items<(\w+), (\w+), (\w+)>", name)
@@ -1527,7 +1871,6 @@ def main() -> int:
         records.update(check_merged_mxu_k6(sd, rays, shadow))
     with phase("living room: K6 path"):
         paths = {"k6_path": k6_path(sd, rays, shadow)}
-    del rays, shadow
     with phase("living room: parity render"):
         parity_render(dev)
     with phase("living room: full render"):
@@ -1549,6 +1892,21 @@ def main() -> int:
     with phase("ajax: culled renders"):
         cull = ajax_cull_renders(dev)
         paths["ajax_normals_culled"] = cull["launches"]
+    with phase("living room: checkpointed full render"):
+        ckpt = checkpointed_renders(dev)
+        paths["living_room_checkpointed"] = ckpt.pop("launches")
+    with phase("harness: t-tests"):
+        ttests = harness_ttests()
+        paths["ttest_furnace"] = ttests.pop("launches")
+    with phase("harness: chi^2 and warps"):
+        chi2_seconds = harness_chi2_warps()
+    with phase("living room: backends"):
+        backends = backend_queries(sd, rays, shadow)
+        backends["parity_render"] = bvh_parity_render(dev)
+    del rays, shadow, sd
+    log("slice results: " + json.dumps(dict(
+        checkpointed=ckpt, ttest_seconds=ttests["seconds"],
+        chi2_warp_seconds=chi2_seconds, backends=backends)))
     for name in ("stream_sweep", "stream_sweep_culled"):
         records[name] = ajax.pop(name)
     for name, sub in ajax.items():

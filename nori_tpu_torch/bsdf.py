@@ -167,6 +167,27 @@ def table_arrays(bsdfs) -> dict:
     }
 
 
+class BSDFTable(NamedTuple):
+    """Per-mesh BSDF parameters on a device, gathered per hit by mesh id
+    (the JAX package's BSDFTable)."""
+
+    type: torch.Tensor     # (M,) int32
+    albedo: torch.Tensor   # (M, 3) albedo (diffuse) / kd (microfacet)
+    alpha: torch.Tensor    # (M,)
+    int_ior: torch.Tensor  # (M,)
+    ext_ior: torch.Tensor  # (M,)
+    ks: torch.Tensor       # (M,)
+
+    @staticmethod
+    def build(bsdfs, device) -> "BSDFTable":
+        cols = table_arrays(bsdfs)
+        return BSDFTable(**{k: torch.from_numpy(cols[k]).to(device)
+                            for k in BSDFTable._fields})
+
+    def gather(self, mesh_id: torch.Tensor) -> "BSDFParams":
+        return BSDFParams(*(col[mesh_id] for col in self))
+
+
 class BSDFParams(NamedTuple):
     """Per-lane gathered parameters."""
 

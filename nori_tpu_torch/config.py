@@ -1,9 +1,19 @@
-"""Sweep configuration of the port.
+"""Intersection configuration of the port.
 
-The JAX package's sweep switches (`nori_tpu/config.py`), read when a
-query runs, not when a module is imported, so a caller (or a test) can
-set them between renders:
+The JAX package's switches (`nori_tpu/config.py`), read when a query
+runs, not when a module is imported, so a caller (or a test) can set
+them between renders:
 
+  accel_mode     the intersection backend, read by resolve_accel:
+                 "pallas" (the default, keeping the JAX package's name)
+                 the sweeps (K1-K5: the port's hand-written kernels on
+                 CUDA, their plain versions on the CPU); "scan" the
+                 chunked Moller-Trumbore scan of the whole soup and
+                 "bvh" the stack walk of the wide BVH, both plain
+                 PyTorch (accel.traverse) and kept as references.  The
+                 JAX package's "auto" has no counterpart: it picks the
+                 scan or the BVH on a CPU, which has no Pallas, whereas
+                 the sweeps run on every device here.
   USE_BW_SWEEP   sweep the Baldwin-Weber operand (`tri_bw`); False
                  sweeps the Moller-Trumbore soup (`tri_packed`).
   USE_MXU_SWEEP  resident scenes sweep the matmul-form operand
@@ -34,8 +44,19 @@ measurements: MERGED_SWEEP is False, which changes no sample value.
 
 from __future__ import annotations
 
+ACCEL_MODES = ("pallas", "scan", "bvh")
+
+accel_mode: str = "pallas"
 USE_BW_SWEEP: bool = True
 USE_MXU_SWEEP: bool = False
 STREAM_CULL_T: int = 0
 MERGED_SWEEP: bool = False
 SORT_KEY_COARSEN: int | None = None
+
+
+def resolve_accel() -> str:
+    """The backend a query takes now: accel_mode, checked."""
+    if accel_mode not in ACCEL_MODES:
+        raise ValueError(f"config.accel_mode {accel_mode!r} is not one of "
+                         f"{ACCEL_MODES}")
+    return accel_mode

@@ -71,6 +71,13 @@ def to_world(frame, v):
     return s * v[..., 0:1] + t * v[..., 1:2] + n * v[..., 2:3]
 
 
+def spherical_direction(theta, phi):
+    """(theta, phi) -> unit vector; matches src/common.cpp:237-249."""
+    sin_t, cos_t = torch.sin(theta), torch.cos(theta)
+    sin_p, cos_p = torch.sin(phi), torch.cos(phi)
+    return torch.stack([sin_t * cos_p, sin_t * sin_p, cos_t], dim=-1)
+
+
 def reflect_local(wi):
     """Mirror reflection about the z axis in the local shading frame
     (reference src/mirror.cpp:44-48)."""

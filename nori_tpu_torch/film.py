@@ -21,6 +21,8 @@ from dataclasses import dataclass
 
 import torch
 
+from nori_tpu_torch.core.color import is_valid
+
 
 @dataclass(frozen=True)
 class FilmSpec:
@@ -46,11 +48,6 @@ class FilmSpec:
 
 def new_accumulator(spec: FilmSpec, device="cpu") -> torch.Tensor:
     return torch.zeros(spec.padded_shape, dtype=torch.float32, device=device)
-
-
-def is_valid(c: torch.Tensor) -> torch.Tensor:
-    """Per-color validity: finite and non-negative (color.h isValid)."""
-    return torch.all(torch.isfinite(c) & (c >= 0.0), dim=-1)
 
 
 def splat(spec: FilmSpec, rfilter, accum, positions, values):

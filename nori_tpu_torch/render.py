@@ -156,22 +156,41 @@ def render(scene, spp: int | None = None, seed: int = 0,
 
 def render_to_files(scene, out_base: str, spp: int | None = None,
                     seed: int = 0, verbose: bool = False, device=None,
-                    n_lanes: int = 131072):
+                    n_lanes: int = 131072, preview: bool = False,
+                    checkpoint: bool = False, view: bool = False):
     """Render and write <base>.exr + tonemapped <base>.png
     (src/main.cpp:140-150).  Path-family integrators use the
     persistent wavefront (n_lanes wide), the others the batch driver.
+    preview writes <base>_preview.png after every chunk; checkpoint
+    dumps resumable render state at <base>.ckpt after every chunk and
+    removes it on completion (both path family only); view draws the
+    film in the terminal after every chunk (nori_tpu_torch.tui, the
+    reference's NoriScreen, src/gui.cpp:19-132), once at the end for
+    the batch driver.
     Returns (image, stats)."""
     from nori_tpu_torch.bitmap import write_exr, write_png
     from nori_tpu_torch.integrators import PATH_FAMILY
     from nori_tpu_torch.wavefront import render_wavefront
 
+    on_chunk = None
+    if view:
+        from nori_tpu_torch.tui import live_view
+
+        def on_chunk(img, frac):
+            live_view(img, status=f"rendering... {100 * frac:.0f}%")
+
     if scene.integrator.plugin_name in PATH_FAMILY:
-        img, stats = render_wavefront(scene, spp=spp, seed=seed,
-                                      n_lanes=n_lanes, verbose=verbose,
-                                      device=device)
+        img, stats = render_wavefront(
+            scene, spp=spp, seed=seed, n_lanes=n_lanes, verbose=verbose,
+            device=device,
+            preview_path=(out_base + "_preview.png") if preview else None,
+            checkpoint_path=(out_base + ".ckpt") if checkpoint else None,
+            on_chunk=on_chunk)
     else:
         img, stats = render(scene, spp=spp, seed=seed, verbose=verbose,
                             device=device)
+        if on_chunk is not None:
+            on_chunk(img, 1.0)
     write_exr(out_base + ".exr", img)
     write_png(out_base + ".png", img)
     return img, stats

@@ -16,6 +16,8 @@ SceneData, read out as numpy arrays, into the port's.
 from __future__ import annotations
 
 import dataclasses
+import weakref
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -100,14 +102,14 @@ def _build_tri_bw(v0, e1, e2, n_tris):
     return out
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False)
 class SceneData:
     """Flat render-ready scene: tensors on one device.
 
     Field for field the JAX package's SceneData, less `bsdf` (the
     per-mesh BSDF table, which `mesh_attr` carries packed) and the wide
-    BVH (HOST_ONLY), which stays in `Scene.compile_arrays()` until a
-    module of the port traverses it.
+    BVH (HOST_ONLY), which only the "bvh" backend reads: `scene_bvh`
+    uploads it at that backend's first query.  Compared by identity.
     """
 
     # triangle soup, world space; padded rows are degenerate & far away
@@ -144,27 +146,62 @@ class SceneData:
     bbox_max: torch.Tensor      # (3,)
 
     def to(self, device) -> "SceneData":
-        return SceneData(**{
+        sd = SceneData(**{
             f.name: getattr(self, f.name).to(device)
             for f in dataclasses.fields(self)})
+        if self in _BVH:
+            _BVH[sd] = [_BVH[self][0], None]
+        return sd
 
 
-#: arrays of `Scene.compile_arrays()` that no module of the port reads
-#: on the device: the wide BVH built for the triangle order ((NODES, W)
-#: int32 children and counts, (NODES, W, 3) box corners).  They are not
-#: uploaded.
+class BVHData(NamedTuple):
+    """The wide BVH on the device (accel.bvh layout): per node, W
+    children with their counts (> 0: a leaf of that many triangles
+    from `child`; 0: an inner node; < 0: empty) and boxes."""
+
+    child: torch.Tensor  # (NODES, W) int32
+    count: torch.Tensor  # (NODES, W) int32
+    bmin: torch.Tensor   # (NODES, W, 3)
+    bmax: torch.Tensor   # (NODES, W, 3)
+
+
+#: arrays of `Scene.compile_arrays()` that are no SceneData field: the
+#: wide BVH built for the triangle order ((NODES, W) int32 children and
+#: counts, (NODES, W, 3) box corners).
 HOST_ONLY = ("bvh_child", "bvh_count", "bvh_bmin", "bvh_bmax")
+
+#: SceneData -> [its HOST_ONLY arrays on the host, their BVHData once
+#: uploaded or None]; beside the SceneData, not a field of it, so a scene
+#: that no query walks by its BVH uploads none.
+_BVH: "weakref.WeakKeyDictionary[SceneData, list]" = \
+    weakref.WeakKeyDictionary()
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.tensor(np.array(a, order="C"), device=device)
+
+
+def scene_bvh(sd: SceneData) -> BVHData:
+    """sd's wide BVH on sd's device, uploaded at the first call."""
+    entry = _BVH.get(sd)
+    if entry is None:
+        raise RuntimeError("the scene data carries no BVH: it was made "
+                           "neither by scene_data_from_numpy nor by .to()")
+    if entry[1] is None:
+        entry[1] = BVHData(*(_tensor(a, sd.tri_v0.device) for a in entry[0]))
+    return entry[1]
 
 
 def scene_data_from_numpy(arrays: dict, device) -> SceneData:
     """SceneData on `device` from numpy arrays keyed by field name.
 
-    Keys the port does not carry on the device (`bsdf`, HOST_ONLY) are
-    ignored, so the dict read out of the JAX package's SceneData can be
-    passed as it is."""
-    return SceneData(**{
-        f.name: torch.tensor(np.array(arrays[f.name], order="C"), device=device)
-        for f in dataclasses.fields(SceneData)})
+    Keys the port does not carry on the device (`bsdf`) are ignored, so
+    the dict read out of the JAX package's SceneData can be passed as it
+    is; the BVH (HOST_ONLY) stays on the host for `scene_bvh`."""
+    sd = SceneData(**{f.name: _tensor(arrays[f.name], device)
+                      for f in dataclasses.fields(SceneData)})
+    _BVH[sd] = [tuple(arrays[k] for k in HOST_ONLY), None]
+    return sd
 
 
 @register_class("scene")

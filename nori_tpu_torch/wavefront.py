@@ -34,12 +34,17 @@ donates it).  Nothing in a step reads a device value on the host.
 
 from __future__ import annotations
 
+import hashlib
 import math
+import os
 import time
+import zipfile
 
+import numpy as np
 import torch
 
 from nori_tpu_torch import config
+from nori_tpu_torch.bitmap import write_png
 from nori_tpu_torch.accel.sweep import lane_keys, pack_rays
 from nori_tpu_torch.accel.traverse import (
     intersect, intersect_mixed, sweep_hit_epilogue)
@@ -414,14 +419,16 @@ class _PendingCount:
         return int(self._host)
 
 
-def run_chunk(steppers, sd, seed, q0: int, q_end: int):
+def run_chunk(steppers, sd, seed, q0: int, q_end: int,
+              check_every: int = CHECK_EVERY):
     """Drive one chunk to completion; returns (L_out, rays tensor,
     (steps, wide steps, lane steps)).
 
     steppers = (init, stages, finalize); stages lists (step, n_active,
-    shrink_to_next) from widest to narrowest.  The occupancy check the
-    host acts on is one window old; n_active == 0 is absorbing, and
-    counts only decay during the drain, so a stale count is safe.
+    shrink_to_next) from widest to narrowest.  The host reads the
+    occupancy every `check_every` steps and acts on the count of the
+    window before: n_active == 0 is absorbing, and counts only decay
+    during the drain, so a stale count is safe.
     """
     init, stages, finalize = steppers
     carry = init(seed, q0, q_end)
@@ -429,12 +436,12 @@ def run_chunk(steppers, sd, seed, q0: int, q_end: int):
     pending = None
     while it < 100000:
         step, n_act, _ = stages[stage]
-        for _ in range(CHECK_EVERY):
+        for _ in range(check_every):
             carry = step(sd, carry, seed)
             it += 1
             if stage == 0:
                 wide_it += 1
-        lane_steps += CHECK_EVERY * carry[0]["active"].shape[0]
+        lane_steps += check_every * carry[0]["active"].shape[0]
         handle = _PendingCount(n_act(carry))
         if pending is not None:
             n = pending.value()
@@ -463,7 +470,11 @@ def make_dense_splat(scene, chunk: int, device="cpu"):
     has filter argument delta - jitter + 0.5, windowed at radius r.
 
     Returns (new_film, splat_chunk, finalize); splat_chunk adds into the
-    film in place.
+    film in place.  A last chunk that runs past the image adds only the
+    rows that lie in the film: the rows past its end hold work items
+    past the last, of weight 0.  (The JAX package's dynamic_slice clamps
+    such a slice's start instead, which moves the chunk's samples once
+    the overrun exceeds the margin.)
     """
     cam = scene.camera
     w, h = cam.output_size
@@ -503,7 +514,8 @@ def make_dense_splat(scene, chunk: int, device="cpu"):
                 wgt = torch.where(okx & in_range, wgt, 0.0)
                 contrib = (rgba * wgt[:, None]).reshape(npix, spp, 4)
                 start = p0 + dy * w + dx + margin
-                film[start:start + npix] += torch.sum(contrib, dim=1)
+                rows = min(npix, film.shape[0] - start)
+                film[start:start + rows] += torch.sum(contrib[:rows], dim=1)
         return film
 
     def finalize(film):
@@ -515,18 +527,91 @@ def make_dense_splat(scene, chunk: int, device="cpu"):
     return new_film, splat_chunk, finalize
 
 
+def _checkpoint_key(scene, spp: int, seed: int, chunk: int) -> str:
+    """SHA-256 hex digest of everything that decides a render's sample
+    values: geometry, materials and emitters, the camera projection, the
+    reconstruction filter, the integrator and the sampling settings.  A
+    checkpoint resumes only under an equal key.  The bytes hashed are the
+    JAX package's (wavefront.py:713-735), so the two digests are equal:
+    host arrays of compile_arrays() and of the camera's parameters."""
+    arrays = scene.compile_arrays()
+    h = hashlib.sha256()
+    h.update(np.asarray(arrays["tri_v0"]).tobytes())
+    h.update(np.asarray(arrays["mesh_attr"]).tobytes())  # BSDFs + radiance
+    h.update(np.asarray(arrays["em_attr"]).tobytes())
+    cp = scene.camera.ray_params("cpu")
+    h.update(cp["camera_to_world"].numpy().tobytes())
+    h.update(cp["sample_to_camera"].numpy().tobytes())
+    h.update(scene.integrator.plugin_name.encode())
+    h.update(np.float32(getattr(scene.camera.rfilter, "radius", 0.0))
+             .tobytes())
+    w, hh = scene.camera.output_size
+    max_depth = getattr(scene.integrator, "max_depth", MAX_DEPTH)
+    h.update(np.asarray([w, hh, spp, seed, chunk, max_depth],
+                        np.int64).tobytes())
+    return h.hexdigest()
+
+
+def _read_checkpoint(path: str, key: str, verbose: bool):
+    """(film numpy array, next work item, rays so far) of the checkpoint
+    at `path` if it is readable and its key is `key`, else None."""
+    if not os.path.exists(path):
+        return None
+    try:
+        with np.load(path) as d:
+            if str(d["key"]) != key:
+                if verbose:
+                    print("  checkpoint config mismatch; starting fresh")
+                return None
+            return d["film"], int(d["next_q0"]), int(d["rays"])
+    except (OSError, ValueError, KeyError, EOFError,
+            zipfile.BadZipFile) as e:
+        if verbose:
+            print(f"  unreadable checkpoint ({e}); starting fresh")
+        return None
+
+
+def _write_checkpoint(path: str, key: str, film, next_q0: int, rays: int):
+    """Dump the film accumulator, the next chunk's first work item and
+    the rays so far; written to a temporary file, then renamed over
+    `path`, so a cut never leaves half a checkpoint."""
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, key=key, film=film.cpu().numpy(), next_q0=next_q0,
+             rays=rays)
+    os.replace(tmp, path)
+
+
 def render_wavefront(scene, spp: int | None = None, seed: int = 0,
                      n_lanes: int = 131072, chunk: int | None = None,
                      verbose: bool = False, sort_rays: bool | None = None,
-                     device=None, merged: bool | None = None):
+                     device=None, merged: bool | None = None,
+                     preview_path: str | None = None,
+                     checkpoint_path: str | None = None,
+                     max_chunks: int | None = None,
+                     on_chunk=None, check_every: int = CHECK_EVERY):
     """Render a path-family scene with the persistent wavefront on
     `device` (default: the first CUDA device; render.resolve_device).
     merged: take the merged step (None reads config.MERGED_SWEEP; NEE
     modes on resident scenes only).
 
-    Returns ((H, W, 3) numpy image, stats).  Checkpoint/resume, preview
-    snapshots and the per-chunk callback of the JAX package are not
-    ported yet (ROADMAP.md).
+    checkpoint_path: after every chunk, dump the film accumulator, the
+    next chunk's cursor and the ray count there; a render cut short and
+    run again with the same arguments resumes after its last finished
+    chunk and gives the same image bit for bit (each chunk's samples
+    depend on their work-item ids alone; the image equals an uncut
+    render's with the same `chunk`, since the chunks' splats add into
+    the film in turn).  The file is removed when the render completes.
+    max_chunks: render at most this many chunks in this call.
+    preview_path: write the film so far as a PNG after every chunk.
+    on_chunk(image, fraction): called after every chunk with the film so
+    far and the fraction of work items done (the tui live view).  Each
+    of the three copies the film to the host once per chunk.
+    check_every: steps between the host's occupancy reads (run_chunk);
+    it changes no sample value.
+
+    Returns ((H, W, 3) numpy image, stats); stats["done"] says whether
+    every chunk has been rendered (with max_chunks, the image is the
+    accumulation so far).
     """
     device = resolve_device(device)
     sd = scene.compile(device)
@@ -569,27 +654,55 @@ def render_wavefront(scene, spp: int | None = None, seed: int = 0,
     new_film, splat_chunk, finalize_film = make_dense_splat(
         scene, chunk, device)
     film = new_film()
+    n_chunks = (total_q + chunk - 1) // chunk
+
+    q_start = rays_resumed = 0
+    ck_key = None
+    if checkpoint_path:
+        ck_key = _checkpoint_key(scene, spp, seed, chunk)
+        saved = _read_checkpoint(checkpoint_path, ck_key, verbose)
+        if saved is not None:
+            film = torch.from_numpy(saved[0]).to(device)
+            q_start, rays_resumed = saved[1], saved[2]
+            if verbose:
+                print(f"  resuming at chunk {q_start // chunk + 1}/{n_chunks}")
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.time()
     ray_counts = []
-    steps_total = wide_total = lane_steps_total = 0
-    for q0 in range(0, total_q, chunk):
+    steps_total = wide_total = lane_steps_total = chunks_done = 0
+    done = q_start >= total_q
+    for q0 in range(q_start, total_q, chunk):
         L_out, rays, (its, wide, lsteps) = run_chunk(
-            steppers, sd, seed, q0, total_q)
+            steppers, sd, seed, q0, total_q, check_every)
         steps_total += its
         wide_total += wide
         lane_steps_total += lsteps
         film = splat_chunk(film, L_out, seed, q0, total_q)
         ray_counts.append(rays)
+        if checkpoint_path:
+            _write_checkpoint(checkpoint_path, ck_key, film, q0 + chunk,
+                              rays_resumed + sum(int(r) for r in ray_counts))
+        if preview_path:
+            # the film so far, in place of the reference's live screen
+            # (src/gui.cpp:19-132)
+            write_png(preview_path, finalize_film(film).cpu().numpy())
+        if on_chunk is not None:
+            on_chunk(finalize_film(film).cpu().numpy(),
+                     (q0 + chunk) / max(total_q, 1))
         if verbose:
-            print(f"  chunk {q0 // chunk + 1}/"
-                  f"{(total_q + chunk - 1) // chunk} "
+            print(f"  chunk {q0 // chunk + 1}/{n_chunks} "
                   f"({time.time() - t0:.2f}s)")
+        chunks_done += 1
+        done = q0 + chunk >= total_q
+        if max_chunks is not None and chunks_done >= max_chunks:
+            break
+    if done and checkpoint_path and os.path.exists(checkpoint_path):
+        os.remove(checkpoint_path)  # complete: nothing to resume
     img = finalize_film(film).cpu().numpy()
     dt = time.time() - t0
-    total_rays = int(sum(int(r) for r in ray_counts))
+    total_rays = rays_resumed + int(sum(int(r) for r in ray_counts))
     return img, {
         "spp": spp, "seconds": dt, "pixels": w * h, "rays": total_rays,
         "mrays_per_sec": total_rays / max(dt, 1e-9) / 1e6,
@@ -601,6 +714,5 @@ def render_wavefront(scene, spp: int | None = None, seed: int = 0,
         "occupancy": total_rays / max(2 * lane_steps_total, 1),
         "merged": merged,
         "device": str(device),
-        # every chunk ran: the port has no max_chunks to cut a render yet
-        "done": True,
+        "done": done,
     }

@@ -1,8 +1,7 @@
 """nori_tpu_torch host layer against nori_tpu: scene compilation,
 SceneData round trip, image output bytes, the CLI (a whitted scene
-rendered to EXR/PNG, EXR viewing refused as not yet ported), the
-default device (CUDA, never the CPU unasked), and the jax-free
-import."""
+rendered to EXR/PNG, other inputs refused), the default device (CUDA,
+never the CPU unasked), and the jax-free import."""
 
 import os
 import subprocess
@@ -82,15 +81,22 @@ def test_image_bytes_equal(tmp_path, half):
 
 
 def test_cli_refuses_unported_integrator(tmp_path, capsys):
-    """Every integrator is ported; EXR viewing is the CLI surface that
-    is not, and it is refused with a clear message."""
+    """Every integrator, test root and EXR viewing is ported; what the
+    CLI still refuses, with a fatal error as the reference's
+    (src/main.cpp:196-211), is an input of another extension and a root
+    object that is neither a scene nor a test."""
     from nori_tpu_torch.main import main
 
-    exr = tmp_path / "img.exr"
-    torch_bitmap.write_exr(str(exr), np.zeros((4, 4, 3), np.float32))
-    assert main([str(exr), "-q"]) == 1
+    obj = tmp_path / "mesh.obj"
+    obj.write_text("v 0 0 0\n")
+    assert main([str(obj), "-q"]) == 1
     out = capsys.readouterr().out
-    assert "Fatal error" in out and "not yet ported" in out
+    assert "Fatal error" in out and "expected .xml or .exr" in out
+    xml = tmp_path / "bsdf.xml"
+    xml.write_text('<bsdf type="diffuse"/>\n')
+    assert main([str(xml), "-q", "--device", "cpu"]) == 1
+    out = capsys.readouterr().out
+    assert "Fatal error" in out and "cannot be executed" in out
 
 
 WHITTED_XML = """<scene>
@@ -178,6 +184,8 @@ def test_import_leaves_jax_out():
         "import nori_tpu_torch.wavefront, nori_tpu_torch.accel.sweep\n"
         "import nori_tpu_torch.film, nori_tpu_torch.integrators.whitted\n"
         "import nori_tpu_torch.integrators.simple_integrators\n"
+        "import nori_tpu_torch.testing, nori_tpu_torch.warptest\n"
+        "import nori_tpu_torch.tui\n"
         "bad = [m for m in sys.modules if m in ('jax', 'nori_tpu') or "
         "m.startswith(('jax.', 'nori_tpu.'))]\n"
         "assert not bad, bad\n"
