@@ -64,7 +64,18 @@ its kernels:
   roughnesses, warptest on every warp;
 * the scan and BVH backends (config.accel_mode): closest and any-hit
   queries on the living room's check rays under scan, bvh and the
-  sweeps, each timed, then a small render under bvh against the sweeps'.
+  sweeps, each timed, then a small render under bvh against the sweeps';
+* the path-graph pipeline (nori_tpu_torch.pathgraph, K1 and K2): the
+  dump of tests/test_pathgraph.py's fixture (Cornell box 32x32, depth 5)
+  and `pg.run` in all five modes on the card against the same on the
+  CPU (the dumps' integer fields, the paths whose point count differs
+  printed; the seven images of each mode under the image gate of
+  tests/test_torch_render.py); then one protocol-scale run (PG_PROTOCOL:
+  the living room at 1280x720, depth 8, k = 16, 3 iterations) in mode
+  opt and mode knn, with the seconds of every stage and the peak device
+  memory, whose outputs must be finite, whose full image and the dump's
+  own PT image must have a mean in MEAN_RANGE, and which must launch K1
+  and K2 and never K5.
 
 Each path resets every kernel's launch count just before it runs and
 reads the counts just after.  Any failure raises and exits non-zero;
@@ -157,6 +168,16 @@ FURNACE = (("path_mats", 2.0), ("path_ems", 2.0), ("path_mis", 2.0),
 #: microfacet roughnesses of the chi^2 suite (beside a diffuse BSDF)
 CHI2_ALPHAS = (0.1, 0.5, 1.0)
 
+#: the path-graph fixture of tests/test_pathgraph.py, card vs CPU
+PG_PARITY = dict(width=32, height=32, sphere_subdiv=1, max_depth=5,
+                 batch=1024, k=8, iterations=1)
+PG_MODES = ("opt", "n", "t", "l", "knn")
+#: one run of the path-graph protocol (PGPROTOCOL_r05.json, 18 such
+#: 1-spp runs merged; scripts/pathgraph_eval.py's defaults): the living
+#: room at 1280x720, detail 3, depth 8, trace_dump's default batch, then
+#: k = 16 and 3 iterations
+PG_PROTOCOL = dict(width=1280, height=720, detail=3, max_depth=8, k=16,
+                   iterations=3)
 #: the H100 SXM's published peaks (NVIDIA's data sheet): fp32 outside
 #: the tensor cores, and device memory
 PEAK_FLOPS = 67e12
@@ -1757,6 +1778,216 @@ def bvh_parity_render(dev):
     return dict(bvh_seconds=st_b["seconds"], sweeps_seconds=st_s["seconds"])
 
 
+# ---------------------------------------------------------------------------
+# the path-graph pipeline (nori_tpu_torch.pathgraph)
+# ---------------------------------------------------------------------------
+
+def pg_images(k: int) -> tuple:
+    """The seven images pg.write_outputs writes, as suffixes of a base."""
+    return (f"_k-{k}_direct.exr", f"_k-{k}_direct_o.exr", "_Le_init.exr",
+            f"_k-{k}_full.exr", f"_k-{k}_indirect.exr",
+            f"_k-{k}_indirect_pt.exr", f"_k-{k}_indirect_blur.exr")
+
+
+def image_gate(label: str, a, b):
+    """tests/test_torch_render.py's image gate: RMSE < 1e-3, < 1% of
+    pixels off by more than 1e-3, max |diff| < 5e-3."""
+    import numpy as np
+
+    diff = np.abs(a - b)
+    rmse = float(np.sqrt(np.mean((a - b) ** 2)))
+    off = float(np.mean(diff.max(axis=-1) > 1e-3))
+    worst = float(diff.max())
+    if a.shape != b.shape or not np.isfinite(a).all():
+        raise AssertionError(f"{label}: shape {a.shape} or non-finite")
+    if not (rmse < 1e-3 and off < 0.01 and worst < 5e-3):
+        raise AssertionError(
+            f"{label}: rmse {rmse:.3e}, pixels off {off:.4f}, max |diff| "
+            f"{worst:.3e} fail the image gate")
+    return rmse, off, worst
+
+
+def compare_dumps(a, b) -> int:
+    """Integer fields of two dumps of one scene: every path's point
+    count, and on the paths whose counts agree, the first-point
+    offsets' layout, each point's continuation (nidx) and BSDF class.
+    Returns the paths whose counts differ."""
+    import numpy as np
+
+    ca = a.paths["numOfPathPoints"].astype(np.int64)
+    cb = b.paths["numOfPathPoints"].astype(np.int64)
+    for g, c in ((a, ca), (b, cb)):
+        first = g.paths["firstPathPointIdx"].astype(np.int64)
+        if not np.array_equal(first, np.cumsum(c) - c):
+            raise AssertionError("firstPathPointIdx is not the count prefix")
+    same = ca == cb
+    sel_a = np.repeat(same, ca)
+    sel_b = np.repeat(same, cb)
+    if not np.array_equal(a.sps["bsdf_type"][sel_a],
+                          b.sps["bsdf_type"][sel_b]):
+        raise AssertionError("dump field bsdf_type differs")
+    nxt_a = a.sps["nidx"][sel_a] > 0
+    nxt_b = b.sps["nidx"][sel_b] > 0
+    rel_a = a.sps["nidx"][sel_a][nxt_a] - np.nonzero(sel_a)[0][nxt_a]
+    rel_b = b.sps["nidx"][sel_b][nxt_b] - np.nonzero(sel_b)[0][nxt_b]
+    if not (np.array_equal(nxt_a, nxt_b) and (rel_a == 1).all()
+            and (rel_b == 1).all()):
+        raise AssertionError("dump field nidx differs")
+    return int((~same).sum())
+
+
+def pathgraph_parity(dev) -> dict:
+    """PG_PARITY: the port's dump and every pg mode on the card against
+    the same on the CPU: the dumps' integer fields (compare_dumps) and
+    the seven images of each mode (image_gate).  Returns the launches,
+    the paths whose point count differs and the seconds."""
+    import torch
+    from nori_tpu_torch.bitmap import read_exr
+    from nori_tpu_torch.pathgraph import pg
+    from nori_tpu_torch.pathgraph.dump import trace_dump
+    from nori_tpu_torch.pathgraph.io import save_path_graph
+    from nori_tpu_torch.scenes_builtin import cornell_box
+
+    cfg = PG_PARITY
+    k = cfg["k"]
+    devices = (("card", dev), ("cpu", torch.device("cpu")))
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        reset_launches()
+        dumps = {}
+        for name, d in devices:
+            scene = cornell_box(cfg["width"], cfg["height"], spp=1,
+                                sphere_subdiv=cfg["sphere_subdiv"])
+            t0 = time.time()
+            g = trace_dump(scene, max_depth=cfg["max_depth"], seed=SEED,
+                           batch=cfg["batch"], device=d)
+            seconds[f"dump {name}"] = time.time() - t0
+            base = os.path.join(tmp, name, "cbox")
+            os.makedirs(os.path.dirname(base))
+            save_path_graph(base, g)
+            dumps[name] = (base, g)
+        changed = compare_dumps(dumps["card"][1], dumps["cpu"][1])
+        log(f"pathgraph parity {cfg['width']}x{cfg['height']}, depth "
+            f"{cfg['max_depth']}: {dumps['card'][1].num_points} (card) vs "
+            f"{dumps['cpu'][1].num_points} (cpu) shading points, {changed} "
+            f"of {len(dumps['card'][1].paths)} paths with another point "
+            f"count")
+        worst = 0.0
+        for mode in PG_MODES:
+            for name, d in devices:
+                t0 = time.time()
+                # "l" loads the clusters the "opt" run saved
+                pg.run(dumps[name][0], k=k, iterations=cfg["iterations"],
+                       mode=mode, save_dump=mode == "opt", verbose=False,
+                       device=d)
+                seconds[f"{mode} {name}"] = time.time() - t0
+            for suffix in pg_images(k):
+                _, _, w = image_gate(f"pathgraph parity {mode} {suffix}",
+                                     read_exr(dumps["card"][0] + suffix),
+                                     read_exr(dumps["cpu"][0] + suffix))
+                worst = max(worst, w)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    log(f"  7 images x {len(PG_MODES)} modes pass the image gate (max "
+        f"|diff| {worst:.3e}); seconds " + ", ".join(
+            f"{name} {sec:.2f}" for name, sec in seconds.items()))
+    log(f"  launches {launches}")
+    for name in ("entry_min", "resident_sweep"):
+        if launches[name] <= 0:
+            raise AssertionError(f"pathgraph parity: {name} never launched")
+    return dict(launches=launches, paths_changed=changed, seconds=seconds,
+                max_abs=worst)
+
+
+def pathgraph_protocol(dev) -> dict:
+    """PG_PROTOCOL: one full-size dump of the living room, then pg in
+    mode opt and in mode knn on it, with the seconds of every stage and
+    the peak device memory.  Returns the launches and the numbers."""
+    import numpy as np
+    import torch
+    from nori_tpu_torch.bitmap import read_exr
+    from nori_tpu_torch.pathgraph import pg
+    from nori_tpu_torch.pathgraph.dump import trace_dump
+    from nori_tpu_torch.pathgraph.io import save_path_graph
+    from nori_tpu_torch.scenes_builtin import living_room
+
+    cfg = PG_PROTOCOL
+    k, iters = cfg["k"], cfg["iterations"]
+    scene = living_room(cfg["width"], cfg["height"], spp=1,
+                        detail=cfg["detail"])
+    out = {"modes": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.time()
+        g = trace_dump(scene, max_depth=cfg["max_depth"], seed=SEED,
+                       device=dev)
+        torch.cuda.synchronize()
+        out["dump_seconds"] = time.time() - t0
+        out["dump_peak_bytes"] = torch.cuda.max_memory_allocated()
+        base = os.path.join(tmp, "living_room")
+        t0 = time.time()
+        save_path_graph(base, g)
+        out["save_seconds"] = time.time() - t0
+        lem = np.asarray(g.lps["L_em"], np.float32)
+        pt_img, _ = pg._splat_first_hits(g, np.asarray(g.sps["eLi"]) + lem)
+        out.update(points=g.num_points, paths=len(g.paths),
+                   pt_mean=float(pt_img.mean()))
+        log(f"pathgraph protocol: living room {cfg['width']}x{cfg['height']} "
+            f"detail {cfg['detail']}, depth {cfg['max_depth']}: "
+            f"{g.num_points} shading points, {len(g.paths)} paths; dump "
+            f"{out['dump_seconds']:.2f} s (peak "
+            f"{out['dump_peak_bytes'] / 2**30:.2f} GiB), saved in "
+            f"{out['save_seconds']:.2f} s; the dump's PT image mean "
+            f"{out['pt_mean']:.4f} (expected {MEAN_RANGE})")
+        del g
+        for mode in ("opt", "knn"):
+            torch.cuda.reset_peak_memory_stats()
+            times = {}
+            t0 = time.time()
+            _, blur, mc, direct = pg.run(base, k=k, iterations=iters,
+                                         mode=mode, device=dev, times=times)
+            wall = time.time() - t0
+            peak = torch.cuda.max_memory_allocated()
+            finite = all(bool(torch.isfinite(t).all())
+                         for t in blur + mc + [direct])
+            means = {}
+            for suffix in pg_images(k):
+                img = read_exr(base + suffix)
+                if not np.isfinite(img).all():
+                    raise AssertionError(f"protocol {mode}: {suffix} holds "
+                                         "non-finite values")
+                means[suffix] = float(img.mean())
+            full = means[f"_k-{k}_full.exr"]
+            log(f"  mode {mode}, k {k}, {iters} iterations: {wall:.2f} s, "
+                f"peak device memory {peak / 2**30:.2f} GiB; full image "
+                f"mean {full:.4f} (expected {MEAN_RANGE})")
+            log("    stages (s): " + ", ".join(
+                f"{name} {sec:.3f}" for name, sec in times.items()))
+            if not finite:
+                raise AssertionError(f"protocol {mode}: non-finite results")
+            if not MEAN_RANGE[0] <= full <= MEAN_RANGE[1]:
+                raise AssertionError(
+                    f"protocol {mode}: full image mean {full} outside "
+                    f"{MEAN_RANGE}")
+            out["modes"][mode] = dict(seconds=wall, stages=times,
+                                      peak_bytes=peak, means=means)
+        torch.cuda.synchronize()
+        out["launches"] = read_launches()
+    log(f"  launches {out['launches']}")
+    if not MEAN_RANGE[0] <= out["pt_mean"] <= MEAN_RANGE[1]:
+        raise AssertionError(f"protocol: the dump's PT image mean "
+                             f"{out['pt_mean']} outside {MEAN_RANGE}")
+    for name in ("entry_min", "resident_sweep"):
+        if out["launches"][name] <= 0:
+            raise AssertionError(f"protocol: {name} never launched")
+    if out["launches"]["stream_sweep"] != 0:
+        raise AssertionError("protocol: the resident living room ran K5")
+    return out
+
+
 def _kernel_group(name: str) -> str:
     """Group of a device operation in the whitted batch profile."""
     m = re.search(r"stream_sweep_items<(\w+), (\w+), (\w+)>", name)
@@ -1904,9 +2135,16 @@ def main() -> int:
         backends = backend_queries(sd, rays, shadow)
         backends["parity_render"] = bvh_parity_render(dev)
     del rays, shadow, sd
+    with phase("path graph: parity"):
+        pg_parity = pathgraph_parity(dev)
+        paths["pathgraph_parity"] = pg_parity.pop("launches")
+    with phase("path graph: protocol run"):
+        pg_protocol = pathgraph_protocol(dev)
+        paths["pathgraph"] = pg_protocol.pop("launches")
     log("slice results: " + json.dumps(dict(
         checkpointed=ckpt, ttest_seconds=ttests["seconds"],
-        chi2_warp_seconds=chi2_seconds, backends=backends)))
+        chi2_warp_seconds=chi2_seconds, backends=backends,
+        pathgraph_parity=pg_parity, pathgraph_protocol=pg_protocol)))
     for name in ("stream_sweep", "stream_sweep_culled"):
         records[name] = ajax.pop(name)
     for name, sub in ajax.items():

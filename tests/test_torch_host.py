@@ -1,7 +1,8 @@
 """nori_tpu_torch host layer against nori_tpu: scene compilation,
 SceneData round trip, image output bytes, the CLI (a whitted scene
 rendered to EXR/PNG, other inputs refused), the default device (CUDA,
-never the CPU unasked), and the jax-free import."""
+never the CPU unasked, also for the path-graph entry points), and the
+jax-free import."""
 
 import os
 import subprocess
@@ -176,6 +177,41 @@ def test_no_silent_cpu_fallback(tmp_path, monkeypatch):
     assert st["device"] == "cpu" and np.isfinite(img).all()
 
 
+def test_pg_needs_a_device(tmp_path, monkeypatch):
+    """Without a CUDA device the path-graph entry points raise unless
+    asked for the CPU; asked, `pg` traces a scene XML and writes its
+    images there."""
+    import torch
+    from nori_tpu_torch.pathgraph import cluster, dump, grid, pg
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (tmp_path / "quad.obj").write_text(
+        "v -1 -1 0\nv 1 -1 0\nv 1 1 0\nv -1 1 0\nf 1 2 3\nf 1 3 4\n")
+    (tmp_path / "light.obj").write_text(
+        "v -0.3 -0.3 1\nv 0.3 -0.3 1\nv 0.3 0.3 1\nv -0.3 0.3 1\n"
+        "f 1 3 2\nf 1 4 3\n")
+    xml = tmp_path / "w.xml"
+    xml.write_text(WHITTED_XML)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pg.main([str(xml), "-k", "4"])
+    scene = torch_scenes.cornell_box(8, 8, 1, sphere_subdiv=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dump.trace_dump(scene, max_depth=2)
+    pos = np.random.RandomState(0).rand(50, 3).astype(np.float32)
+    g = grid.UniformGrid(pos, [3, 3, 3], np.zeros(3), np.ones(3))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        grid.knn(pos, g, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cluster.build_clusters(pos, [3, 3, 3], np.zeros(3), np.ones(3), 4)
+    assert pg.main([str(xml), "-k", "4", "-m", "knn", "--save-dump",
+                    "--device", "cpu"]) == 0
+    base = str(tmp_path / "w")
+    full = torch_bitmap.read_exr(base + "_k-4_full.exr")
+    assert full.shape == (12, 16, 3) and np.isfinite(full).all()
+    assert full.mean() > 0.01
+    assert os.path.getsize(base + "_vert.bin") > 0
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys\n"
@@ -186,6 +222,15 @@ def test_import_leaves_jax_out():
         "import nori_tpu_torch.integrators.simple_integrators\n"
         "import nori_tpu_torch.testing, nori_tpu_torch.warptest\n"
         "import nori_tpu_torch.tui\n"
+        "import nori_tpu_torch.pathgraph.io, nori_tpu_torch.pathgraph.grid\n"
+        "import nori_tpu_torch.pathgraph.bsdfgraph\n"
+        "import nori_tpu_torch.pathgraph.cluster\n"
+        "import nori_tpu_torch.pathgraph.aggregate\n"
+        "import nori_tpu_torch.pathgraph.dump, nori_tpu_torch.pathgraph.pg\n"
+        "import nori_tpu_torch.pathgraph.analysis\n"
+        "import nori_tpu_torch.pathgraph.merge\n"
+        "import nori_tpu_torch.pathgraph.visual\n"
+        "import nori_tpu_torch.export, nori_tpu_torch.export.blender\n"
         "bad = [m for m in sys.modules if m in ('jax', 'nori_tpu') or "
         "m.startswith(('jax.', 'nori_tpu.'))]\n"
         "assert not bad, bad\n"
