@@ -57,6 +57,18 @@ its kernels:
   chunks, uncut, then cut after two chunks with a checkpoint, a preview
   PNG and an on_chunk callback, then resumed to the uncut image's SHA-1
   and ray count;
+* the sharded drivers (nori_tpu_torch.parallel): the full living-room
+  render through render_sharded_wavefront at 524,288 lanes and the
+  checkpointed render's chunk per rank, at one nccl rank in this process
+  and at two gloo ranks spawned on the one card (NCCL refuses two ranks
+  on a card), each to the uncut checkpointed image's SHA-1 and rays,
+  with K1, K2 and K3 on every rank; then ajax_normals through
+  render_sharded at the same rank counts against the single-device
+  batch driver (equal rays, the same image bits), with K5 and never K2
+  on every rank.  Each rank reads its own launch counts;
+* the sweep report (nori_tpu_torch.profiling.kernel_report) on the full
+  living room's 131,072-lane pool after 8 wavefront steps: candidate
+  pairs per ray, the closest-hit sweep's time and rates (K1, K2, K3);
 * the statistical harness through the CLI's test root: the microfacet
   t-test of ttest-microfacet.xml, furnace t-tests of path_mats,
   path_ems, path_mis and whitted (and the path_mis furnace held to a
@@ -109,6 +121,9 @@ import sys
 import tempfile
 import time
 
+# outside a checkout of the repo this import fails before any output
+from nori_tpu_torch.profiling import PAIR_OPS
+
 #: full-size render (the workload bench.py and BASELINE.md head with)
 FULL = dict(width=1280, height=720, spp=32, detail=5, n_lanes=524288)
 #: parity render, port on the card vs port on the CPU
@@ -159,6 +174,9 @@ MXU_PARITY = dict(width=16, height=16, spp=2, detail=3, n_lanes=4096)
 CULL_T = 128
 #: the checkpointed full render runs in this many chunks
 CKPT_CHUNKS = 4
+#: rank counts of the sharded phases: one nccl rank in this process, two
+#: gloo ranks spawned on the one card (NCCL refuses two ranks on a card)
+SHARDED_RANKS = (1, 2)
 #: ttest-microfacet.xml's angles and reference means (tests/test_bsdf.py)
 TTEST_ANGLES = (0, 45, 60, 80, 85)
 TTEST_REFERENCES = (0.207067, 0.215733, 0.247884, 0.430936, 0.519016)
@@ -182,9 +200,6 @@ PG_PROTOCOL = dict(width=1280, height=720, detail=3, max_depth=8, k=16,
 #: the tensor cores, and device memory
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-#: operations per ray-triangle pair test (the JAX package's counts for
-#: BW and MT; MXU: four 10-term sums, 76, plus the epilogue's 13)
-PAIR_OPS = {"bw": 40, "mt": 56, "mxu": 89}
 #: operations per ray-box slab test with its fold (12 to reach the six
 #: planes, 6 min/max per axis, 4 for entry and exit, 3 compares, 2 to
 #: fold)
@@ -1522,6 +1537,156 @@ def checkpointed_renders(dev) -> dict:
                 preview_bytes=png_bytes, sha1=sha_a, rays=st_a["rays"])
 
 
+# ---------------------------------------------------------------------------
+# the sharded drivers (nori_tpu_torch.parallel) and the sweep report
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def nccl_rank(dev):
+    """This process as the one rank of an nccl group, for a block."""
+    import torch.distributed as dist
+    from nori_tpu_torch.parallel import make_group
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _, _, _, dev = make_group("nccl", dev,
+                                  "file://" + os.path.join(tmp, "rdzv"), 0, 1)
+        try:
+            yield dev
+        finally:
+            dist.destroy_process_group()
+
+
+def sharded_run(dev, label: str, ranks: int, scene_fn, scene_kwargs,
+                driver: str, kwargs) -> tuple:
+    """One render through a sharded driver: one nccl rank in this process
+    (ranks 1), or `ranks` gloo ranks spawned on `dev` (they share the
+    card).  Returns (image, stats, launches of each rank); each rank
+    reads its own launch counts, since the counts are per process."""
+    from nori_tpu_torch import parallel
+
+    jobs = [(scene_fn, scene_kwargs, driver, kwargs)]
+    if ranks == 1:
+        with nccl_rank(dev) as rank_dev:
+            (img, st, launches), = parallel.render_jobs(rank_dev, jobs)
+    else:
+        (img, st, launches), = parallel.spawn(
+            parallel.render_jobs, ranks, jobs, backend="gloo",
+            device=str(dev), timeout=600)
+    log(f"{label}: {ranks} rank(s) ({'nccl' if ranks == 1 else 'gloo'}), "
+        f"{st['seconds']:.2f} s, rays {st['rays']}, "
+        f"{st['mrays_per_sec']:.3f} Mrays/s"
+        + (f", rays per rank {st['rays_per_dev']}, steps {st['steps']}, "
+           f"wide steps {st['wide_steps']}" if "steps" in st else ""))
+    for r, n in enumerate(launches):
+        log(f"  rank {r} launches {n}")
+    return img, st, launches
+
+
+def summed(launches: list) -> dict:
+    return {k: sum(n[k] for n in launches) for k in launches[0]}
+
+
+def sharded_living_room(dev, ckpt: dict) -> dict:
+    """FULL through render_sharded_wavefront at FULL's lanes per rank and
+    checkpointed_renders' chunk (total_q / CKPT_CHUNKS) per rank, at one
+    nccl rank and at two gloo ranks on the one card: each must give the
+    uncut checkpointed image's SHA-1 and rays, and launch K1, K2 and K3
+    on every rank.  Returns {ranks: stats and launches}."""
+    import hashlib
+
+    from nori_tpu_torch.scenes_builtin import living_room
+
+    cfg = FULL
+    total_q = cfg["width"] * cfg["height"] * cfg["spp"]
+    scene_kw = dict(width=cfg["width"], height=cfg["height"],
+                    spp=cfg["spp"], detail=cfg["detail"])
+    kw = dict(seed=SEED, n_lanes_dev=cfg["n_lanes"],
+              chunk_dev=total_q // CKPT_CHUNKS)
+    out = {}
+    for ranks in SHARDED_RANKS:
+        img, st, launches = sharded_run(
+            dev, "sharded living room", ranks, living_room, scene_kw,
+            "wavefront", kw)
+        sha = hashlib.sha1(img.tobytes()).hexdigest()
+        log(f"  SHA-1 {sha} vs {ckpt['sha1']}; rays {st['rays']} vs "
+            f"{ckpt['rays']}")
+        if sha != ckpt["sha1"] or st["rays"] != ckpt["rays"]:
+            raise AssertionError(f"sharded living room at {ranks} rank(s) "
+                                 "differs from the uncut render")
+        for r, n in enumerate(launches):
+            for k in ("entry_min", "resident_sweep", "lane_keys"):
+                if n[k] <= 0:
+                    raise AssertionError(f"sharded living room: rank {r} "
+                                         f"never launched {k}")
+        out[ranks] = dict(seconds=st["seconds"],
+                          mrays_per_sec=st["mrays_per_sec"],
+                          rays_per_dev=st["rays_per_dev"], steps=st["steps"],
+                          wide_steps=st["wide_steps"], launches=launches)
+    return out
+
+
+def sharded_ajax(dev) -> dict:
+    """ajax_normals through render_sharded at one nccl rank and at two
+    gloo ranks on the one card, against the single-device batch driver
+    at the same batch: equal rays and the same image bits (rank 0 splats
+    the ranks' shares of each batch as one batch); every rank launches
+    K5 and never K2.  Returns {ranks: stats and launches}."""
+    import numpy as np
+    import torch
+    from nori_tpu_torch.render import render
+
+    integrator, spp, band = AJAX_FULL["ajax_normals"]
+    scene_kw = dict(width=AJAX_SIZE, height=AJAX_SIZE, spp=spp,
+                    integrator=integrator)
+    ref, ref_st = render(ajax_scene(**scene_kw), seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    out = {"single_device_seconds": ref_st["seconds"]}
+    for ranks in SHARDED_RANKS:
+        img, st, launches = sharded_run(
+            dev, "sharded ajax_normals", ranks, ajax_scene, scene_kw,
+            "batch", dict(seed=SEED))
+        gate(f"sharded ajax_normals, {ranks} rank(s)", img, st, ref, ref_st,
+             ("sharded", "single device"))
+        if not np.array_equal(img, ref):
+            raise AssertionError(f"sharded ajax_normals at {ranks} rank(s) "
+                                 "is not the single-device image")
+        for r, n in enumerate(launches):
+            if n["stream_sweep"] <= 0 or n["resident_sweep"] != 0:
+                raise AssertionError(f"sharded ajax_normals: rank {r} "
+                                     f"launches {n}")
+        out[ranks] = dict(seconds=st["seconds"],
+                          mrays_per_sec=st["mrays_per_sec"],
+                          launches=launches)
+    return out
+
+
+def room_kernel_report(dev) -> dict:
+    """profiling.kernel_report on FULL's scene at CHECK_LANES rays after
+    8 wavefront steps; returns the report and its launches."""
+    import math
+
+    import torch
+    from nori_tpu_torch.profiling import kernel_report
+    from nori_tpu_torch.scenes_builtin import living_room
+
+    scene = living_room(FULL["width"], FULL["height"], FULL["spp"],
+                        detail=FULL["detail"])
+    torch.cuda.synchronize()
+    reset_launches()
+    rep = kernel_report(scene, n_rays=CHECK_LANES, seed=SEED,
+                        bounce_steps=8, device=dev)
+    launches = read_launches()
+    log(f"kernel report: {json.dumps(rep)}")
+    log(f"  launches {launches}")
+    for k, v in rep.items():
+        if not (math.isfinite(v) and v > 0):
+            raise AssertionError(f"kernel report: {k} = {v}")
+    for k in ("entry_min", "resident_sweep"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel report: {k} never launched")
+    return dict(report=rep, launches=launches)
+
+
 def write_furnace(directory: str) -> str:
     """A closed cube [-1, 1]^3 with every face's geometric normal inward
     (the camera sits at its centre); returns the OBJ's path."""
@@ -2073,9 +2238,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    # outside a checkout of the repo this import fails before any output
-    import nori_tpu_torch  # noqa: F401
-
     dev = torch.device("cuda:0")
     card = card_line()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2126,6 +2288,18 @@ def main() -> int:
     with phase("living room: checkpointed full render"):
         ckpt = checkpointed_renders(dev)
         paths["living_room_checkpointed"] = ckpt.pop("launches")
+    with phase("living room: sharded render"):
+        sharded = sharded_living_room(dev, ckpt)
+        for ranks, res in sharded.items():
+            paths[f"living_room_sharded_{ranks}"] = summed(res["launches"])
+    with phase("ajax: sharded batch"):
+        ajax_sharded = sharded_ajax(dev)
+        for ranks in SHARDED_RANKS:
+            paths[f"ajax_normals_sharded_{ranks}"] = summed(
+                ajax_sharded[ranks]["launches"])
+    with phase("living room: kernel report"):
+        report = room_kernel_report(dev)
+        paths["kernel_report"] = report.pop("launches")
     with phase("harness: t-tests"):
         ttests = harness_ttests()
         paths["ttest_furnace"] = ttests.pop("launches")
@@ -2144,7 +2318,9 @@ def main() -> int:
     log("slice results: " + json.dumps(dict(
         checkpointed=ckpt, ttest_seconds=ttests["seconds"],
         chi2_warp_seconds=chi2_seconds, backends=backends,
-        pathgraph_parity=pg_parity, pathgraph_protocol=pg_protocol)))
+        pathgraph_parity=pg_parity, pathgraph_protocol=pg_protocol,
+        sharded_living_room=sharded, sharded_ajax_normals=ajax_sharded,
+        kernel_report=report["report"])))
     for name in ("stream_sweep", "stream_sweep_culled"):
         records[name] = ajax.pop(name)
     for name, sub in ajax.items():

@@ -200,6 +200,15 @@ def streamed(sd) -> bool:
     return sd.tri_packed.shape[0] == 16
 
 
+def sweep_operand(sd) -> str:
+    """The operand _sweep tests on this scene now: "mxu" (resident
+    scenes with config.USE_MXU_SWEEP), else "bw" with
+    config.USE_BW_SWEEP, else "mt"."""
+    if config.USE_MXU_SWEEP and not streamed(sd):
+        return "mxu"
+    return "bw" if config.USE_BW_SWEEP else "mt"
+
+
 def _sweep(sd, rays, any_hit: bool):
     """(t, idx) dispatch as traverse.py:249-305 (`_sweep_any`), less the
     TPU's memory budgets: the operand lives in device memory.  The
@@ -207,7 +216,8 @@ def _sweep(sd, rays, any_hit: bool):
     Moller-Trumbore soup, whose rounding matches the JAX package's CPU
     scan path."""
     keys, idx_bits = ray_tile_entry_keys(sd.tri_tile_bounds, rays)
-    use_bw = config.USE_BW_SWEEP
+    op = sweep_operand(sd)
+    use_bw = op == "bw"
     if streamed(sd):
         cull_t = config.STREAM_CULL_T
         if not use_bw and cull_sub_blocks(cull_t) > 1:
@@ -215,7 +225,7 @@ def _sweep(sd, rays, any_hit: bool):
                                        any_hit=any_hit, cull_t=cull_t)
         return stream_sweep(sd.tri_bw if use_bw else sd.tri_packed, keys,
                             idx_bits, rays, any_hit=any_hit, use_bw=use_bw)
-    if config.USE_MXU_SWEEP:
+    if op == "mxu":
         return resident_sweep_mxu(sd.tri_mxu, keys, idx_bits, rays,
                                   any_hit=any_hit)
     return resident_sweep(sd.tri_bw if use_bw else sd.tri_packed, keys,

@@ -12,6 +12,7 @@ the path family to the persistent wavefront and the rest to `render`.
 
 from __future__ import annotations
 
+import math
 import time
 
 import torch
@@ -104,45 +105,117 @@ def make_sample_pass_q(scene, batch: int, device="cpu"):
     return pass_fn
 
 
-def render(scene, spp: int | None = None, seed: int = 0,
-           verbose: bool = False, batch: int | None = None, device=None):
-    """Render a scene with the batch driver on `device` (default: the
-    first CUDA device; resolve_device); returns (image (H, W, 3) numpy,
-    stats dict)."""
-    from nori_tpu_torch.wavefront import make_dense_splat
+class _PendingCount:
+    """A device count read on the host one window late: on a CUDA
+    device the copy is asynchronous and waits only for the work queued
+    before it, not for the steps enqueued since."""
 
-    device = resolve_device(device)
+    def __init__(self, count: torch.Tensor):
+        if count.is_cuda:
+            self._host = count.to("cpu", non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host, self._event = count, None
+
+    def value(self) -> int:
+        if self._event is not None:
+            self._event.synchronize()
+        return int(self._host)
+
+
+class Solo:
+    """The collectives of a render on one device, with no group: rank 0
+    of 1.  parallel.py's take their place across the ranks of a group,
+    so one driver serves both."""
+
+    rank, size = 0, 1
+    #: handle on the pool's occupancy, read a window later
+    count = _PendingCount
+
+    @staticmethod
+    def gather_ints(local: torch.Tensor) -> torch.Tensor:
+        return local.reshape(1).to(torch.int64)
+
+    @staticmethod
+    def gather(t: torch.Tensor) -> list:
+        return [t]
+
+    @staticmethod
+    def broadcast(t: torch.Tensor) -> torch.Tensor:
+        return t
+
+
+def prepare(scene, spp: int | None, device):
+    """Compile `scene` on `device` and fix its sample count; returns
+    (scene data, spp)."""
     sd = scene.compile(device)
-    w, h = scene.camera.output_size
-    if spp is None:
-        spp = scene.sampler.sample_count
-    else:
+    if spp is not None:
         scene.sampler.sample_count = spp
     scene.integrator.preprocess(scene)
+    return sd, scene.sampler.sample_count
 
+
+def make_batch_pass(scene, batch: int, device="cpu", coll=Solo):
+    """Pass adding one batch of `batch` work items q to the dense film,
+    the batch shared by coll's ranks: rank r traces its contiguous
+    batch // coll.size items, rank 0 gathers them in q order and splats
+    the whole batch (wavefront.make_dense_splat at `batch`), so the film
+    is the same at any rank count.
+
+    Returns (new_film, pass_fn, finalize); pass_fn(sd, film, seed, q0)
+    -> (film, rays (coll.size,) per rank); film is None on other ranks.
+    """
+    from nori_tpu_torch.wavefront import make_dense_splat
+
+    share = batch // coll.size
+    total_q = math.prod(scene.camera.output_size) * \
+        scene.sampler.sample_count
+    trace = make_sample_pass_q(scene, share, device)
+    new_film, splat_chunk, finalize = make_dense_splat(scene, batch, device)
+
+    def pass_fn(sd, film, seed, q0: int):
+        vals, rays = trace(sd, seed, q0 + coll.rank * share)
+        rays = coll.gather_ints(rays)
+        parts = coll.gather(vals)
+        if parts is not None:
+            vals = parts[0] if len(parts) == 1 else torch.cat(parts)
+            film = splat_chunk(film, vals, seed, q0, total_q)
+        return film, rays
+
+    return new_film, pass_fn, finalize
+
+
+def render_batches(scene, sd, spp: int, seed: int, batch: int | None,
+                   device, coll=Solo, verbose: bool = False):
+    """The batch loop of `render` and parallel.render_sharded over
+    coll's ranks; returns (image (H, W, 3) numpy, stats), the same image
+    on every rank."""
+    w, h = scene.camera.output_size
     total_q = w * h * spp
     if batch is None:
         batch = min(DEFAULT_BATCH, total_q)
-    batch = max(spp, (batch // spp) * spp)
-    pass_fn = make_sample_pass_q(scene, batch, device)
-    new_film, splat_chunk, finalize = make_dense_splat(scene, batch, device)
-
-    film = new_film()
+    # whole pixels, shared evenly by the ranks
+    unit = math.lcm(spp, coll.size)
+    batch = max(unit, (batch // unit) * unit)
+    new_film, pass_fn, finalize = make_batch_pass(scene, batch, device, coll)
+    film = new_film() if coll.rank == 0 else None
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.time()
     ray_counts = []
     n_batches = (total_q + batch - 1) // batch
     for b in range(n_batches):
-        q0 = b * batch
-        vals, rays = pass_fn(sd, seed, q0)
-        film = splat_chunk(film, vals, seed, q0, total_q)
+        film, rays = pass_fn(sd, film, seed, b * batch)
         ray_counts.append(rays)
-        if verbose and (b + 1) % max(1, n_batches // 10) == 0:
+        if verbose and coll.rank == 0 \
+                and (b + 1) % max(1, n_batches // 10) == 0:
             print(f"  batch {b + 1}/{n_batches}  ({time.time() - t0:.2f}s)")
-    img = finalize(film).cpu().numpy()
+    img = finalize(film) if coll.rank == 0 else torch.empty(
+        (h, w, 3), dtype=torch.float32, device=device)
+    img = coll.broadcast(img).cpu().numpy()
     elapsed = time.time() - t0
-    total_rays = int(torch.stack(ray_counts).sum())
+    total_rays = int(torch.cat(ray_counts).sum())
     return img, {
         "spp": spp,
         "seconds": elapsed,
@@ -151,7 +224,19 @@ def render(scene, spp: int | None = None, seed: int = 0,
         "rays": total_rays,
         "mrays_per_sec": total_rays / max(elapsed, 1e-9) / 1e6,
         "device": str(device),
+        "devices": coll.size,
     }
+
+
+def render(scene, spp: int | None = None, seed: int = 0,
+           verbose: bool = False, batch: int | None = None, device=None):
+    """Render a scene with the batch driver on `device` (default: the
+    first CUDA device; resolve_device); returns (image (H, W, 3) numpy,
+    stats dict)."""
+    device = resolve_device(device)
+    sd, spp = prepare(scene, spp, device)
+    return render_batches(scene, sd, spp, seed, batch, device,
+                          verbose=verbose)
 
 
 def render_to_files(scene, out_base: str, spp: int | None = None,

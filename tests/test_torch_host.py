@@ -231,6 +231,7 @@ def test_import_leaves_jax_out():
         "import nori_tpu_torch.pathgraph.merge\n"
         "import nori_tpu_torch.pathgraph.visual\n"
         "import nori_tpu_torch.export, nori_tpu_torch.export.blender\n"
+        "import nori_tpu_torch.parallel, nori_tpu_torch.profiling\n"
         "bad = [m for m in sys.modules if m in ('jax', 'nori_tpu') or "
         "m.startswith(('jax.', 'nori_tpu.'))]\n"
         "assert not bad, bad\n"
