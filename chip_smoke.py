@@ -87,7 +87,18 @@ its kernels:
   opt and mode knn, with the seconds of every stage and the peak device
   memory, whose outputs must be finite, whose full image and the dump's
   own PT image must have a mean in MEAN_RANGE, and which must launch K1
-  and K2 and never K5.
+  and K2 and never K5;
+* the measurement and evaluation entry points: `python bench_torch.py`
+  in a subprocess with a BENCH_BUDGET_S budget (its last line a complete
+  record with the living_room and ajax_rough rows, each row's two image
+  SHA-1s equal and its rays > 0, K1, K2 and K3 launched by the living
+  room and K1, K3 and K5 by ajax_rough); the matched-RMSE gate
+  (nori_tpu_torch.scripts.rmse_gate) with link 3 at GATE_SPP, whose
+  links 1 (against the JAX package's CPU render
+  scratch/rmse_gate/lr_cpu_ref.npz) and 2 must pass; and the path-graph
+  evaluation (nori_tpu_torch.scripts.pathgraph_eval, PG_EVAL) run twice
+  in one directory, the second call resuming every run, the reference
+  and the curve to the same JSON with no kernel launched.
 
 Each path resets every kernel's launch count just before it runs and
 reads the counts just after.  Any failure raises and exits non-zero;
@@ -122,6 +133,7 @@ import tempfile
 import time
 
 # outside a checkout of the repo this import fails before any output
+from nori_tpu_torch.bench import AJAX_SIZE, ajax_scene
 from nori_tpu_torch.profiling import PAIR_OPS
 
 #: full-size render (the workload bench.py and BASELINE.md head with)
@@ -137,18 +149,9 @@ CHECK_LANES = 131072
 MEAN_RANGE = (0.22, 0.32)
 SEED = 0
 
-#: the ajax composition: camera of scenes/pa2/ajax-normals.xml (fov 30,
-#: 768x768), the stand-in bust (microfacet alpha 0.2, kd 0.3) and an
-#: emissive quad standing in for scenes/pa5/ajax/light.obj: y 6.3-33.7,
-#: 50 degrees around the bust from the camera, facing the bust
-AJAX_ORIGIN = [-65.6055, 47.5762, 24.3583]
-AJAX_TARGET = [-64.8161, 47.2211, 23.8576]
-AJAX_UP = [0.299858, 0.934836, -0.190177]
-AJAX_LIGHT = ([-58.437, 6.3, 35.786], [-58.437, 33.7, 35.786],
-              [-38.614, 33.7, 38.436], [-38.614, 6.3, 38.436])
-AJAX_RADIANCE = [8.0, 8.0, 8.0]
-#: full renders: (integrator, spp, mean-radiance band).  The bands come
-#: from the port's CPU renders of the same composition at 48x48 with
+#: full renders of the ajax composition (nori_tpu_torch.bench.ajax_scene):
+#: (integrator, spp, mean-radiance band).  The bands come from the
+#: port's CPU renders of the same composition at 48x48 with
 #: the stand-in at n_lat=128, n_lon=132: normals 0.4920 and 0.4918,
 #: whitted 0.0618 and 0.0628 (seeds 1 and 2; 0.4944 and 0.0623/0.0640
 #: at 64x66); they allow for resolution, tessellation and noise
@@ -156,7 +159,6 @@ AJAX_FULL = {
     "ajax_normals": ("normals", 4, (0.44, 0.54)),
     "ajax_rough": ("whitted", 16, (0.050, 0.076)),
 }
-AJAX_SIZE = 768
 #: the stand-in at its defaults (512 x 530): 541,660 triangles padded to
 #: 1,058 slabs of 512
 AJAX_TRIS, AJAX_SLABS = 541696, 1058
@@ -196,6 +198,16 @@ PG_MODES = ("opt", "n", "t", "l", "knn")
 #: k = 16 and 3 iterations
 PG_PROTOCOL = dict(width=1280, height=720, detail=3, max_depth=8, k=16,
                    iterations=3)
+#: the bench phase: bench_torch.py's time budget, and the kernels each
+#: named row must launch
+BENCH_BUDGET_S = 240
+BENCH_KERNELS = {"living_room": ("entry_min", "resident_sweep", "lane_keys"),
+                 "ajax_rough": ("entry_min", "lane_keys", "stream_sweep")}
+#: the reduced matched-RMSE gate: link 3's spp
+GATE_SPP = 64
+#: the path-graph evaluation phase: the living room at 256x256, two runs
+PG_EVAL = ["--scene", "living_room", "--res", "256", "--detail", "3",
+           "--runs", "2", "--k", "16", "--iters", "3", "--ref-spp", "64"]
 #: the H100 SXM's published peaks (NVIDIA's data sheet): fp32 outside
 #: the tensor cores, and device memory
 PEAK_FLOPS = 67e12
@@ -1030,42 +1042,6 @@ def phase(name: str):
     log(f"== {name}")
     yield
     log(f"== {name}: {time.time() - t0:.1f} s")
-
-
-def ajax_scene(width: int, height: int, spp: int, integrator: str,
-               n_lat: int = 512, n_lon: int = 530):
-    """The ajax composition (see AJAX_*), with the stand-in bust at
-    n_lat x n_lon."""
-    from nori_tpu_torch import scenes_builtin as sb
-    from nori_tpu_torch.core.transform import Transform
-    from nori_tpu_torch.props import PropertyList
-    from nori_tpu_torch.registry import create_instance
-    from nori_tpu_torch.scene import Scene
-
-    md = sb.ajax_standin_meshdata(n_lat=n_lat, n_lon=n_lon)
-    scene = Scene(PropertyList())
-    scene.add_child(sb._mesh_obj(
-        md.positions, md.faces,
-        sb._bsdf("microfacet", alpha=0.2, kd=[0.3, 0.3, 0.3]), name="ajax"))
-    v, f = sb._quad(*AJAX_LIGHT)
-    scene.add_child(sb._mesh_obj(
-        v, f, sb._bsdf("diffuse", albedo=[0.0, 0.0, 0.0]),
-        emitter=sb._area_light(AJAX_RADIANCE), name="light"))
-    cam_pl = PropertyList()
-    cam_pl.set_integer("width", width)
-    cam_pl.set_integer("height", height)
-    cam_pl.set_float("fov", 30.0)
-    cam_pl.set_transform("toWorld", Transform.lookat(AJAX_ORIGIN,
-                                                     AJAX_TARGET, AJAX_UP))
-    cam = create_instance("perspective", cam_pl)
-    cam.activate()
-    scene.add_child(cam)
-    samp_pl = PropertyList()
-    samp_pl.set_integer("sampleCount", spp)
-    scene.add_child(create_instance("independent", samp_pl))
-    scene.add_child(create_instance(integrator, PropertyList()))
-    scene.activate()
-    return scene
 
 
 def ajax_rays(scene, sd, dev, q):
@@ -2153,6 +2129,130 @@ def pathgraph_protocol(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the measurement and evaluation entry points
+# ---------------------------------------------------------------------------
+
+def bench_phase() -> dict:
+    """`python bench_torch.py` in a subprocess with BENCH_TIME_BUDGET =
+    BENCH_BUDGET_S: its last line a complete record (not partial, or
+    its skips listed), the living_room and ajax_rough rows present,
+    each row's two image SHA-1s equal and its rays > 0, each row of
+    BENCH_KERNELS launching its kernels, and the living room's kernel
+    report present (or listed as skipped), with no error and every
+    figure finite and > 0.  Returns the record."""
+    import math
+
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, BENCH_TIME_BUDGET=str(BENCH_BUDGET_S))
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.join(root, "bench_torch.py")],
+                          cwd=root, env=env, capture_output=True, text=True,
+                          timeout=BENCH_BUDGET_S + 180)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"bench_torch.py exit {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    rec = json.loads(lines[-1])
+    log(f"bench: {len(lines)} records, the last after {rec['elapsed_s']:.1f} "
+        f"s of {rec['budget_s']:.0f}; device {rec['device']}; skipped "
+        f"{rec.get('skipped', [])}")
+    if rec.get("partial") and not rec.get("skipped"):
+        raise AssertionError("bench: partial record with no skips listed")
+    for name in BENCH_KERNELS:
+        if name not in rec["breakdown"]:
+            raise AssertionError(f"bench: no {name} row")
+    for name, row in rec["breakdown"].items():
+        if "error" in row:
+            raise AssertionError(f"bench: row {name} failed: {row['error']}")
+        log(f"  {name} ({row['driver']}, {row['spp']} spp, "
+            f"{row['triangles']} triangles): seconds {row['seconds_each']}, "
+            f"Mrays/s {row['mrays_per_sec_each']}, rays {row['rays_each']}, "
+            f"occupancy {row['occupancy']:.4f}, steps {row['steps']}, mean "
+            f"{row['mean_radiance']:.4f}, row {row['row_seconds']:.1f} s; "
+            f"sha1 {row['sha1'][0][:12]} {row['sha1'][1][:12]}; launches "
+            f"{row['launches']}")
+        if row["sha1"][0] != row["sha1"][1]:
+            raise AssertionError(f"bench: {name}'s two images differ")
+        if min(row["rays_each"]) <= 0:
+            raise AssertionError(f"bench: {name} traced no ray")
+        for k in BENCH_KERNELS.get(name, ()):
+            if row["launches"][k] <= 0:
+                raise AssertionError(f"bench: {name} never launched {k}")
+    report = rec["kernel"].get("living_room")
+    if report is None:
+        if not any(s["row"] == "kernel_living_room"
+                   for s in rec.get("skipped", ())):
+            raise AssertionError("bench: no kernel report, and none skipped")
+    else:
+        log(f"  kernel report: {report}")
+        if "error" in report:
+            raise AssertionError(f"bench: kernel report failed: "
+                                 f"{report['error']}")
+        for k, v in report.items():
+            if not (math.isfinite(v) and v > 0):
+                raise AssertionError(f"bench: kernel report: {k} = {v}")
+    return rec
+
+
+def rmse_gate_phase(dev) -> dict:
+    """nori_tpu_torch.scripts.rmse_gate with link 3 at GATE_SPP, its
+    record written to a temporary directory: links 1 (against the JAX
+    package's CPU render, scratch/rmse_gate/lr_cpu_ref.npz) and 2 must
+    pass; link 3 is reported.  Returns the record."""
+    from nori_tpu_torch.scripts import rmse_gate
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = rmse_gate.run_gate(spp_full=GATE_SPP, device=dev,
+                                 json_out=os.path.join(tmp, "gate.json"))
+    for link in ("exact_gate", "mc_scaling"):
+        if not out[link]["pass"]:
+            raise AssertionError(f"rmse gate: {link} failed: {out[link]}")
+    return out
+
+
+def pathgraph_eval_phase(dev) -> dict:
+    """nori_tpu_torch.scripts.pathgraph_eval with PG_EVAL in a temporary
+    directory, then the same command again there: the second call must
+    resume every run, the reference and the curve (no kernel launched)
+    and give the same JSON.  The first must launch K1 and K2 and give
+    finite RMSEs.  Returns its result and launches."""
+    import math
+    import torch
+    from nori_tpu_torch.scripts import pathgraph_eval
+
+    out, launches = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        args = PG_EVAL + ["--out", os.path.join(tmp, "eval"),
+                          "--device", str(dev)]
+        for i in range(2):
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.time()
+            path = os.path.join(tmp, f"result_{i}.json")
+            pathgraph_eval.main(args + ["--json-out", path])
+            torch.cuda.synchronize()
+            launches.append(read_launches())
+            with open(path) as f:
+                out.append(json.load(f))
+            log(f"pathgraph eval call {i + 1}: {time.time() - t0:.1f} s, "
+                f"launches {launches[-1]}; {out[-1]}")
+    first, again = out
+    if again != first:
+        raise AssertionError("pathgraph eval: the resumed call's JSON differs")
+    if any(launches[1].values()):
+        raise AssertionError("pathgraph eval: the second call rendered")
+    for name in ("entry_min", "resident_sweep"):
+        if launches[0][name] <= 0:
+            raise AssertionError(f"pathgraph eval: {name} never launched")
+    for key in ("pg_rmse", "pt_same_samples_rmse", "pt_spp_at_parity"):
+        if not (math.isfinite(first[key]) and first[key] > 0):
+            raise AssertionError(f"pathgraph eval: {key} = {first[key]}")
+    return dict(result=first, launches=launches[0])
+
+
 def _kernel_group(name: str) -> str:
     """Group of a device operation in the whitted batch profile."""
     m = re.search(r"stream_sweep_items<(\w+), (\w+), (\w+)>", name)
@@ -2315,12 +2415,22 @@ def main() -> int:
     with phase("path graph: protocol run"):
         pg_protocol = pathgraph_protocol(dev)
         paths["pathgraph"] = pg_protocol.pop("launches")
+    with phase("bench"):
+        bench = bench_phase()
+        for name, row in bench["breakdown"].items():
+            paths[f"bench_{name}"] = row["launches"]
+    with phase("rmse gate (reduced)"):
+        gate_record = rmse_gate_phase(dev)
+    with phase("path graph: evaluation"):
+        pg_eval = pathgraph_eval_phase(dev)
+        paths["pathgraph_eval"] = pg_eval.pop("launches")
     log("slice results: " + json.dumps(dict(
         checkpointed=ckpt, ttest_seconds=ttests["seconds"],
         chi2_warp_seconds=chi2_seconds, backends=backends,
         pathgraph_parity=pg_parity, pathgraph_protocol=pg_protocol,
         sharded_living_room=sharded, sharded_ajax_normals=ajax_sharded,
-        kernel_report=report["report"])))
+        kernel_report=report["report"], bench=bench, rmse_gate=gate_record,
+        pathgraph_eval=pg_eval["result"])))
     for name in ("stream_sweep", "stream_sweep_culled"):
         records[name] = ajax.pop(name)
     for name, sub in ajax.items():

@@ -958,3 +958,10 @@ def mt_sweep(tris_packed, tile_bounds, scene_bounds, rays,
 
 
 mt_sweep.launches = 0
+
+
+def launch_counters() -> dict:
+    """The kernel wrappers of this module that count their launches,
+    by name."""
+    return {k: f for k, f in globals().items()
+            if callable(f) and hasattr(f, "launches")}

@@ -22,6 +22,7 @@ from dataclasses import dataclass
 import torch
 
 from nori_tpu_torch.core.color import is_valid
+from nori_tpu_torch.device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -46,8 +47,11 @@ class FilmSpec:
         return (self.height + 2 * self.border, self.width + 2 * self.border, 4)
 
 
-def new_accumulator(spec: FilmSpec, device="cpu") -> torch.Tensor:
-    return torch.zeros(spec.padded_shape, dtype=torch.float32, device=device)
+def new_accumulator(spec: FilmSpec, device=None) -> torch.Tensor:
+    """A zeroed accumulator on `device` (default: the first CUDA device;
+    device.resolve_device)."""
+    return torch.zeros(spec.padded_shape, dtype=torch.float32,
+                       device=resolve_device(device))
 
 
 def splat(spec: FilmSpec, rfilter, accum, positions, values):

@@ -35,10 +35,11 @@ import traceback
 import torch
 import torch.distributed as dist
 
+from nori_tpu_torch.accel.sweep import launch_counters
+from nori_tpu_torch.device import resolve_device
 from nori_tpu_torch.integrators.path import MIS
 from nori_tpu_torch.render import (
-    Solo, _PendingCount, make_batch_pass, prepare, render_batches,
-    resolve_device)
+    Solo, _PendingCount, make_batch_pass, prepare, render_batches)
 from nori_tpu_torch.wavefront import (
     CHECK_EVERY, MAX_DEPTH, merged_step, render_chunks, wavefront_stages)
 
@@ -49,7 +50,7 @@ N_LANES_DEV_DEFAULT = 524288
 
 def rank_device(device, rank: int) -> torch.device:
     """The device of local rank `rank`: `device`, by default CUDA
-    (render.resolve_device); a CUDA device without an index is card
+    (device.resolve_device); a CUDA device without an index is card
     `rank`.  Raises when this host has no such card: ranks share a card
     only when given it by index ("cuda:0"), and only on gloo."""
     device = resolve_device(device)
@@ -307,7 +308,7 @@ def render_sharded_wavefront(scene, group=None, spp: int | None = None,
                              verbose: bool = False, device=None):
     """Sharded persistent-wavefront render (nori_tpu/parallel.py:267) on
     this rank of `group` (collectives()), on `device` (default:
-    the first CUDA device; render.resolve_device).
+    the first CUDA device; device.resolve_device).
 
     Work item space q is cut into global chunks of world_size *
     chunk_dev items; rank r renders [q0 + r * chunk_dev, q0 + (r + 1) *
@@ -359,14 +360,6 @@ def render_sharded(scene, group=None, spp: int | None = None, seed: int = 0,
     return render_batches(scene, sd, spp, seed, batch, device, coll)
 
 
-def _launch_counters() -> dict:
-    """The kernel wrappers of accel.sweep that count their launches."""
-    from nori_tpu_torch.accel import sweep
-
-    return {k: f for k, f in vars(sweep).items()
-            if callable(f) and hasattr(f, "launches")}
-
-
 def render_jobs(device, jobs, switches=None) -> list:
     """Rank body for `spawn` (fn(device, ...)): set the
     nori_tpu_torch.config `switches` (a spawned rank starts from a fresh
@@ -387,7 +380,7 @@ def render_jobs(device, jobs, switches=None) -> list:
             raise AttributeError(f"nori_tpu_torch.config has no {k}")
         setattr(config, k, v)
     drivers = {"wavefront": render_sharded_wavefront, "batch": render_sharded}
-    counters = _launch_counters()
+    counters = launch_counters()
     out = []
     for scene_fn, scene_kwargs, driver, kwargs in jobs:
         scene = scene_fn(**scene_kwargs)

@@ -22,7 +22,7 @@ import torch
 
 from nori_tpu_torch.pathgraph.grid import (
     UniformGrid, cell_runs, grid_tensors, sqdist)
-from nori_tpu_torch.render import resolve_device
+from nori_tpu_torch.device import resolve_device
 
 #: points per nearest-seed launch group
 SEED_CHUNK = 262144
@@ -33,7 +33,7 @@ def build_clusters(pos: np.ndarray, dims, bbox_min, bbox_max, k: int,
                    device=None):
     """Returns (cluster_id (N,), order (N,), offsets (C+1,)), numpy.
     The nearest-seed search runs on `device` (default: the first CUDA
-    device; render.resolve_device), the rest on the host.
+    device; device.resolve_device), the rest on the host.
 
     `order` sorts points by cluster; cluster c owns
     order[offsets[c]:offsets[c+1]].

@@ -48,11 +48,12 @@ from nori_tpu_torch.interaction import fill_interaction_fast
 from nori_tpu_torch.integrators.base import (
     mesh_params, sample_emitter_point_fast, shadow_ray_args,
 )
+from nori_tpu_torch.device import resolve_device
 from nori_tpu_torch.pathgraph.bsdfgraph import GraphPoints, eval_graph_bsdf
 from nori_tpu_torch.pathgraph.io import (
     SPOINT_DTYPE, LPOINT_DTYPE, CPATH_DTYPE, PathGraphData,
 )
-from nori_tpu_torch.render import JITTER_STREAM, resolve_device
+from nori_tpu_torch.render import JITTER_STREAM
 
 RR_START = 3
 RR_MAX = 0.95
@@ -61,7 +62,7 @@ RR_MAX = 0.95
 def trace_dump(scene, max_depth: int = 8, seed: int = 0,
                batch: int = 65536, device=None):
     """Trace 1 sample/pixel on `device` (default: the first CUDA device;
-    render.resolve_device) and return a PathGraphData."""
+    device.resolve_device) and return a PathGraphData."""
     dev = resolve_device(device)
     sd = scene.compile(dev)
     cam = scene.camera

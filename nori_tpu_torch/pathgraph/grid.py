@@ -101,14 +101,14 @@ def grid_tensors(grid: UniformGrid, device):
 def knn(pos: np.ndarray, grid: UniformGrid, k: int,
         run_cap: int | None = None, chunk: int = KNN_CHUNK, device=None):
     """k nearest neighbors over the 27-cell neighborhood, on `device`
-    (default: the first CUDA device; render.resolve_device).
+    (default: the first CUDA device; device.resolve_device).
 
     Returns (neighbors (N, k) int32, counts (N,) int32) tensors on the
     device.  neighbors[:, 0] is the point itself; remaining slots hold
     its nearest candidates (self again where fewer than k candidates
     exist); counts are the valid slots.
     """
-    from nori_tpu_torch.render import resolve_device
+    from nori_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
     n = pos.shape[0]

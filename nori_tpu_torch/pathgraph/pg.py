@@ -51,7 +51,7 @@ from nori_tpu_torch.pathgraph.grid import UniformGrid, knn
 from nori_tpu_torch.pathgraph.cluster import build_clusters, pad_clusters
 from nori_tpu_torch.pathgraph import aggregate
 from nori_tpu_torch.bitmap import write_exr
-from nori_tpu_torch.render import resolve_device
+from nori_tpu_torch.device import resolve_device
 
 
 def _host(x) -> np.ndarray:
@@ -127,7 +127,7 @@ def run(base: str, k: int = 16, iterations: int = 1, mode: str = "opt",
         device=None, times: dict | None = None):
     """Load or trace a dump, aggregate it in `mode` and write the seven
     images of write_outputs, on `device` (default: the first CUDA
-    device; render.resolve_device).  Returns (PathGraphData, blur
+    device; device.resolve_device).  Returns (PathGraphData, blur
     results, mc results, direct), the last three tensors on the device.
     `times`, when given, receives the seconds of each stage."""
     dev = resolve_device(device)

@@ -19,7 +19,7 @@ from nori_tpu_torch.accel.sweep import (
 from nori_tpu_torch.accel.traverse import (
     intersect, streamed, sweep_operand)
 from nori_tpu_torch.integrators.path import MIS
-from nori_tpu_torch.render import resolve_device
+from nori_tpu_torch.device import resolve_device
 from nori_tpu_torch.wavefront import make_wavefront_stepper
 
 #: operations per tested ray-triangle pair of each operand (chip_smoke.py
@@ -85,7 +85,7 @@ def kernel_report(scene, n_rays: int = 131072, seed: int = 0,
                   bounce_steps: int = 8, device=None) -> dict:
     """Sweep-kernel report on a realistic mid-render ray distribution:
     run `bounce_steps` wavefront steps of an n_rays-lane pool on
-    `device` (default: the current CUDA device; render.resolve_device),
+    `device` (default: the current CUDA device; device.resolve_device),
     then time the closest-hit sweep on the pool's rays and relate it to
     the exact candidate-pair counts.  gflops_est counts PAIR_OPS of the
     swept operand per union pair."""

@@ -18,24 +18,13 @@ import time
 import torch
 
 from nori_tpu_torch.core import rng
+from nori_tpu_torch.device import resolve_device  # noqa: F401 (re-export)
 from nori_tpu_torch.film import FilmSpec, splat
 
 #: RNG stream of the pixel jitter, shared by camera rays and the splat
 JITTER_STREAM = 0xF000
 #: work items per batch of `render` (the JAX package's)
 DEFAULT_BATCH = 131072
-
-
-def resolve_device(device) -> torch.device:
-    """The device a render runs on: `device`, by default the first CUDA
-    device.  Raises RuntimeError when that is a CUDA device and none is
-    available: a render goes to the CPU only when asked to."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"no CUDA device available for {dev}: pass device='cpu' to "
-            "render on the CPU")
-    return dev
 
 
 def camera_rays(scene, cam_params, pix, lanes, seed):
@@ -50,13 +39,15 @@ def camera_rays(scene, cam_params, pix, lanes, seed):
     return (pos, *type(cam).sample_rays(cam_params, pos))
 
 
-def make_sample_pass(scene, spec: FilmSpec, batch: int, device="cpu"):
+def make_sample_pass(scene, spec: FilmSpec, batch: int, device=None):
     """Pass over `batch` pixels of one sample index, splatted into a
-    `film.FilmSpec` accumulator with the scatter-add filter.
+    `film.FilmSpec` accumulator with the scatter-add filter, on `device`
+    (default: the first CUDA device; resolve_device).
 
     Returns fn(sd, accum, seed, sample_idx, pix0) -> (accum, dropped,
     rays); lanes past the image are masked, so the last batch may be
     ragged."""
+    device = resolve_device(device)
     cam = scene.camera
     w, h = cam.output_size
     n_pixels = w * h
@@ -80,13 +71,15 @@ def make_sample_pass(scene, spec: FilmSpec, batch: int, device="cpu"):
     return sample_pass
 
 
-def make_sample_pass_q(scene, batch: int, device="cpu"):
-    """Pass over `batch` work items q = pixel * spp + sample.
+def make_sample_pass_q(scene, batch: int, device=None):
+    """Pass over `batch` work items q = pixel * spp + sample, on `device`
+    (default: the first CUDA device; resolve_device).
 
     Returns fn(sd, seed, q0) -> (L (batch, 3), rays).  The RNG streams
     are keyed by q exactly as make_sample_pass keys them by
     pixel * spp + sample_idx, so the two batchings give the same sample
     values."""
+    device = resolve_device(device)
     cam = scene.camera
     w, h = cam.output_size
     spp = scene.sampler.sample_count
@@ -156,9 +149,10 @@ def prepare(scene, spp: int | None, device):
     return sd, scene.sampler.sample_count
 
 
-def make_batch_pass(scene, batch: int, device="cpu", coll=Solo):
-    """Pass adding one batch of `batch` work items q to the dense film,
-    the batch shared by coll's ranks: rank r traces its contiguous
+def make_batch_pass(scene, batch: int, device=None, coll=Solo):
+    """Pass adding one batch of `batch` work items q to the dense film on
+    `device` (default: the first CUDA device; resolve_device), the batch
+    shared by coll's ranks: rank r traces its contiguous
     batch // coll.size items, rank 0 gathers them in q order and splats
     the whole batch (wavefront.make_dense_splat at `batch`), so the film
     is the same at any rank count.
@@ -168,6 +162,7 @@ def make_batch_pass(scene, batch: int, device="cpu", coll=Solo):
     """
     from nori_tpu_torch.wavefront import make_dense_splat
 
+    device = resolve_device(device)
     share = batch // coll.size
     total_q = math.prod(scene.camera.output_size) * \
         scene.sampler.sample_count

@@ -29,6 +29,7 @@ from nori_tpu_torch.registry import register_class, NoriError, create_instance
 from nori_tpu_torch.bsdf import table_arrays
 # triangles per tile of the resident sweep / per slab of the streamed one
 from nori_tpu_torch.accel.sweep import FINE_T, STREAM_T
+from nori_tpu_torch.device import resolve_device
 
 TRI_PAD = 512  # triangle padding granularity (the JAX package's)
 #: the JAX package sizes tile bounds by a TPU memory budget: soups with
@@ -248,9 +249,11 @@ class Scene(NoriObject):
             super().add_child(child)
 
     # -- compilation --------------------------------------------------------
-    def compile(self, device="cpu") -> SceneData:
-        """The compiled scene as tensors on `device`."""
-        return scene_data_from_numpy(self.compile_arrays(), device)
+    def compile(self, device=None) -> SceneData:
+        """The compiled scene as tensors on `device` (default: the first
+        CUDA device; device.resolve_device)."""
+        return scene_data_from_numpy(self.compile_arrays(),
+                                     resolve_device(device))
 
     def compile_arrays(self) -> dict:
         """Flatten the object graph into numpy arrays (cached)."""

@@ -124,8 +124,8 @@ class ChiSquareTest(NoriObject):
 
     def run(self, verbose: bool = True, device=None) -> bool:
         """Run every test on `device` (default: the first CUDA device,
-        render.resolve_device); True when all pass."""
-        from nori_tpu_torch.render import resolve_device
+        device.resolve_device); True when all pass."""
+        from nori_tpu_torch.device import resolve_device
 
         device = resolve_device(device)
         passed = total = 0

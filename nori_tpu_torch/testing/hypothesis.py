@@ -1,6 +1,8 @@
 """Statistical hypothesis tests.
 
-Copy of `nori_tpu/testing/hypothesis.py` (numpy and scipy).
+Copy of `nori_tpu/testing/hypothesis.py` (numpy and scipy; scipy.stats
+is imported where it is used, since it is the slowest import of the
+package and every `import nori_tpu_torch` loads this module).
 Re-implementation of the `hypothesis` library contract used by the
 reference (src/chi2test.cpp:169-185, src/ttest.cpp:138-141,190-193):
 
@@ -20,7 +22,6 @@ the vectorized pdf instead of recursive scalar quadrature.
 from __future__ import annotations
 
 import numpy as np
-from scipy import stats as sstats
 
 
 def sidak(significance: float, num_tests: int) -> float:
@@ -66,6 +67,8 @@ def chi2_test(obs, exp, sample_count, min_exp_frequency=5,
         return True, "chi2: degenerate table (all cells pooled)"
 
     stat = float(np.sum((pooled_obs - pooled_exp) ** 2 / pooled_exp))
+    from scipy import stats as sstats
+
     p = float(sstats.chi2.sf(stat, dof))
     alpha = sidak(significance, num_tests)
     passed = p > alpha
@@ -84,6 +87,8 @@ def students_t_test(mean, variance, reference, sample_count,
         passed = abs(mean - reference) < 1e-6
         return passed, f"t-test: zero variance, |mean-ref|={abs(mean - reference):.2e}"
     t = abs(mean - reference) / np.sqrt(variance / sample_count)
+    from scipy import stats as sstats
+
     p = 2.0 * float(sstats.t.sf(t, sample_count - 1))
     alpha = sidak(significance, num_tests)
     passed = p > alpha

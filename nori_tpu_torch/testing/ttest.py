@@ -148,8 +148,8 @@ class StudentsTTest(NoriObject):
 
     def run(self, verbose: bool = True, device=None) -> bool:
         """Run every test on `device` (default: the first CUDA device,
-        render.resolve_device); True when all pass."""
-        from nori_tpu_torch.render import resolve_device
+        device.resolve_device); True when all pass."""
+        from nori_tpu_torch.device import resolve_device
 
         if self.bsdfs and self.scenes:
             raise NoriError("Cannot test BSDFs and scenes at the same time")

@@ -116,8 +116,8 @@ def _microfacet(param: float, param2: float, n: int, u, seed: int, device):
 def run_warp_test(name: str, param: float = 0.0, param2: float = 0.0,
                   seed: int = 0, verbose: bool = True, device=None):
     """chi^2 of one warp on `device` (default: the first CUDA device,
-    render.resolve_device); returns (passed, message, points)."""
-    from nori_tpu_torch.render import resolve_device
+    device.resolve_device); returns (passed, message, points)."""
+    from nori_tpu_torch.device import resolve_device
 
     device = resolve_device(device)
     n = SAMPLE_FACTOR * RES * RES

@@ -51,9 +51,10 @@ from nori_tpu_torch.accel.traverse import (
 from nori_tpu_torch.bsdf import E_DISCRETE
 from nori_tpu_torch.core import rng
 from nori_tpu_torch.core.vecmath import EPSILON, to_world
+from nori_tpu_torch.device import resolve_device
 from nori_tpu_torch.integrators.path import EMS, MIS, path_vertex
 from nori_tpu_torch.render import (
-    JITTER_STREAM, Solo, _PendingCount, prepare, resolve_device)
+    JITTER_STREAM, Solo, _PendingCount, prepare)
 
 MAX_DEPTH = 48
 #: the host reads the pool's occupancy every this many steps, one
@@ -165,8 +166,9 @@ def merged_step(scene, mode: int, merged: bool | None = None) -> bool:
 def make_wavefront_stepper(scene, mode: int, n_lanes: int, chunk: int,
                            max_depth: int = MAX_DEPTH,
                            sort_rays: bool | None = None,
-                           device="cpu", merged: bool | None = None):
-    """Build (init, step, n_active, finalize) for one pool width.
+                           device=None, merged: bool | None = None):
+    """Build (init, step, n_active, finalize) for one pool width, on
+    `device` (default: the first CUDA device; device.resolve_device).
 
     carry = (state dict, next_q, records (chunk + N, 4), w_cursor,
     rays, q_hi), the scalars 0-d int64 tensors on `device`; work items
@@ -178,6 +180,7 @@ def make_wavefront_stepper(scene, mode: int, n_lanes: int, chunk: int,
     rays' hits (hit_t, hit_tri) and `primed`, a host-side bool: whether
     they were traced yet.
     """
+    device = resolve_device(device)
     cam = scene.camera
     w, h = cam.output_size
     spp = scene.sampler.sample_count
@@ -445,8 +448,9 @@ def run_chunk(steppers, sd, seed, q0: int, q_end: int,
     return L_out, carry[4], (it, wide_it, lane_steps)
 
 
-def make_dense_splat(scene, chunk: int, device="cpu"):
-    """Scatter-free film splat for pixel-major work chunks.
+def make_dense_splat(scene, chunk: int, device=None):
+    """Scatter-free film splat for pixel-major work chunks, on `device`
+    (default: the first CUDA device; device.resolve_device).
 
     Work items are ordered q = pixel * spp + sample, so a chunk covers a
     contiguous range of pixels.  For each of the D*D filter offsets the
@@ -464,6 +468,7 @@ def make_dense_splat(scene, chunk: int, device="cpu"):
     instead, which moves the chunk's samples once the overrun exceeds
     the margin.)
     """
+    device = resolve_device(device)
     cam = scene.camera
     w, h = cam.output_size
     spp = scene.sampler.sample_count
@@ -714,7 +719,7 @@ def render_wavefront(scene, spp: int | None = None, seed: int = 0,
                      max_chunks: int | None = None,
                      on_chunk=None, check_every: int = CHECK_EVERY):
     """Render a path-family scene with the persistent wavefront on
-    `device` (default: the first CUDA device; render.resolve_device).
+    `device` (default: the first CUDA device; device.resolve_device).
     merged: take the merged step (None reads config.MERGED_SWEEP; NEE
     modes on resident scenes only).
 

@@ -16,7 +16,11 @@ from nori_tpu import bitmap as jax_bitmap
 
 import nori_tpu_torch
 from nori_tpu_torch import bitmap as torch_bitmap
+from nori_tpu_torch import film as torch_film
+from nori_tpu_torch import render as torch_render
 from nori_tpu_torch import scenes_builtin as torch_scenes
+from nori_tpu_torch import wavefront as torch_wf
+from nori_tpu_torch.integrators.path import MIS
 from nori_tpu_torch.scene import HOST_ONLY, SceneData, scene_data_from_numpy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -177,6 +181,44 @@ def test_no_silent_cpu_fallback(tmp_path, monkeypatch):
     assert st["device"] == "cpu" and np.isfinite(img).all()
 
 
+def _film_spec(scene):
+    return torch_film.FilmSpec.for_filter(*scene.camera.output_size,
+                                          scene.camera.rfilter)
+
+
+#: the public factories of compiled scenes, passes, steppers, splats and
+#: films: name -> fn(scene, **device), whose device defaults to the
+#: first CUDA device
+FACTORIES = {
+    "Scene.compile": lambda s, **d: s.compile(**d),
+    "make_sample_pass": lambda s, **d: torch_render.make_sample_pass(
+        s, _film_spec(s), 64, **d),
+    "make_sample_pass_q": lambda s, **d: torch_render.make_sample_pass_q(
+        s, 64, **d),
+    "make_batch_pass": lambda s, **d: torch_render.make_batch_pass(
+        s, 64, **d),
+    "make_wavefront_stepper": lambda s, **d: torch_wf.make_wavefront_stepper(
+        s, MIS, 4096, 4096, **d),
+    "make_dense_splat": lambda s, **d: torch_wf.make_dense_splat(s, 64, **d),
+    "new_accumulator": lambda s, **d: torch_film.new_accumulator(
+        _film_spec(s), **d),
+}
+
+
+@pytest.mark.parametrize("factory", sorted(FACTORIES))
+def test_no_silent_cpu_fallback_of_factory(factory, monkeypatch):
+    """Without a CUDA device each public factory raises unless asked
+    for the CPU; asked, it makes its object there."""
+    import torch
+
+    scene = torch_scenes.cornell_box(8, 8, 1, sphere_subdiv=1)
+    scene.integrator.preprocess(scene)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FACTORIES[factory](scene)
+    assert FACTORIES[factory](scene, device="cpu") is not None
+
+
 def test_pg_needs_a_device(tmp_path, monkeypatch):
     """Without a CUDA device the path-graph entry points raise unless
     asked for the CPU; asked, `pg` traces a scene XML and writes its
@@ -232,6 +274,10 @@ def test_import_leaves_jax_out():
         "import nori_tpu_torch.pathgraph.visual\n"
         "import nori_tpu_torch.export, nori_tpu_torch.export.blender\n"
         "import nori_tpu_torch.parallel, nori_tpu_torch.profiling\n"
+        "import nori_tpu_torch.bench, nori_tpu_torch.device, bench_torch\n"
+        "import nori_tpu_torch.scripts.rmse_gate\n"
+        "import nori_tpu_torch.scripts.pathgraph_eval\n"
+        "import nori_tpu_torch.scripts.pg_protocol_report\n"
         "bad = [m for m in sys.modules if m in ('jax', 'nori_tpu') or "
         "m.startswith(('jax.', 'nori_tpu.'))]\n"
         "assert not bad, bad\n"

@@ -139,10 +139,10 @@ def test_sample_pass_film_matches_jax():
     assert (tspec.border, tspec.footprint) == (jspec.border, jspec.footprint)
     batch = 96   # the last batch of each sample index is ragged
     jpass = jax_render.make_sample_pass(js, jspec, batch)
-    tpass = torch_render.make_sample_pass(ts, tspec, batch)
+    tpass = torch_render.make_sample_pass(ts, tspec, batch, "cpu")
     jsd, tsd = js.compile(), ts.compile("cpu")
     jacc, tacc = jax_film.new_accumulator(jspec), torch_film.new_accumulator(
-        tspec)
+        tspec, "cpu")
     rays = 0
     for s in range(2):
         for pix0 in range(0, w * h, batch):
