@@ -73,7 +73,12 @@ its kernels:
   t-test of ttest-microfacet.xml, furnace t-tests of path_mats,
   path_ems, path_mis and whitted (and the path_mis furnace held to a
   wrong mean, which must fail), chi2test on diffuse and three microfacet
-  roughnesses, warptest on every warp;
+  roughnesses, warptest on every warp; then the port's runner of the
+  reference's statistical fixtures (nori_tpu_torch.scripts.ref_gates)
+  at --scale 16 over a temporary root holding the same microfacet
+  t-test, furnace and chi^2 suite under names of their own, each of
+  which must pass every test it holds, with K1 and K2 launched by the
+  furnace scenes;
 * the scan and BVH backends (config.accel_mode): closest and any-hit
   queries on the living room's check rays under scan, bvh and the
   sweeps, each timed, then a small render under bvh against the sweeps';
@@ -95,7 +100,12 @@ its kernels:
   room and K1, K3 and K5 by ajax_rough); the matched-RMSE gate
   (nori_tpu_torch.scripts.rmse_gate) with link 3 at GATE_SPP, whose
   links 1 (against the JAX package's CPU render
-  scratch/rmse_gate/lr_cpu_ref.npz) and 2 must pass; and the path-graph
+  scratch/rmse_gate/lr_cpu_ref.npz) and 2 must pass; the ten rows of
+  scratch/living_room_1024spp_rows.npz (the JAX package's CPU render of
+  the rows the 1024-spp reference misplaced, tools/reference_rows.py)
+  rendered on the card over the same row ranges through the checkpoint
+  resume, held to the npz by the exact gate and ROWS_MAX_ABS (K1, K2,
+  K3); and the path-graph
   evaluation (nori_tpu_torch.scripts.pathgraph_eval, PG_EVAL) run twice
   in one directory, the second call resuming every run, the reference
   and the curve to the same JSON with no kernel launched.
@@ -187,6 +197,13 @@ FURNACE = (("path_mats", 2.0), ("path_ems", 2.0), ("path_mis", 2.0),
            ("whitted", 1.5))
 #: microfacet roughnesses of the chi^2 suite (beside a diffuse BSDF)
 CHI2_ALPHAS = (0.1, 0.5, 1.0)
+#: the ref-gates runner phase's sample-count divisor
+REF_GATES_SCALE = 16
+#: the reference-rows phase's loose bound on any pixel: at 1024 spp the
+#: full-size link's largest difference outside the misplaced rows is
+#: 0.0508, and the misplaced samples moved pixels by up to 4.85
+#: (RMSE_GATE_torch.json, NVIDIA H100 80GB HBM3, 700.00 W)
+ROWS_MAX_ABS = 0.5
 
 #: the path-graph fixture of tests/test_pathgraph.py, card vs CPU
 PG_PARITY = dict(width=32, height=32, sphere_subdiv=1, max_depth=5,
@@ -1729,15 +1746,12 @@ def run_cli(tmp: str, name: str, xml: str) -> tuple[int, float]:
     return code, dt
 
 
-def harness_ttests() -> dict:
-    """The t-test suites through the CLI's test root: the microfacet BSDF
-    means of ttest-microfacet.xml, the furnace for path_mats, path_ems,
-    path_mis (Li = 1 / (1 - 0.5) = 2) and whitted (1 + 0.5), each of which
-    must pass, and the path_mis furnace held to 2.2, which must fail.
-    Returns the furnace suite's launches and each suite's seconds."""
+def ttest_microfacet_xml() -> str:
+    """The microfacet BSDF t-test of ttest-microfacet.xml, transcribed:
+    TTEST_ANGLES against TTEST_REFERENCES."""
     refs = ", ".join(str(r) for r in TTEST_REFERENCES)
     angles = ", ".join(str(a) for a in TTEST_ANGLES)
-    bsdf_xml = f"""<test type="ttest">
+    return f"""<test type="ttest">
   <string name="angles" value="{angles}"/>
   <string name="references" value="{refs}"/>
   <bsdf type="microfacet">
@@ -1748,11 +1762,28 @@ def harness_ttests() -> dict:
   </bsdf>
 </test>
 """
+
+
+def chi2_xml() -> str:
+    """chi2test over diffuse and microfacet at CHI2_ALPHAS, the plugin's
+    defaults otherwise (5 tests each)."""
+    bsdfs = "".join(f'\n  <bsdf type="microfacet"><float name="alpha" '
+                    f'value="{a}"/></bsdf>' for a in CHI2_ALPHAS)
+    return (f'<test type="chi2test">\n  <boolean name="dumpFiles" '
+            f'value="false"/>\n  <bsdf type="diffuse"/>{bsdfs}\n</test>\n')
+
+
+def harness_ttests() -> dict:
+    """The t-test suites through the CLI's test root: the microfacet BSDF
+    means of ttest-microfacet.xml, the furnace for path_mats, path_ems,
+    path_mis (Li = 1 / (1 - 0.5) = 2) and whitted (1 + 0.5), each of which
+    must pass, and the path_mis furnace held to 2.2, which must fail.
+    Returns the furnace suite's launches and each suite's seconds."""
     seconds = {}
     with tempfile.TemporaryDirectory() as tmp:
         write_furnace(tmp)
         code, seconds["ttest-microfacet"] = run_cli(tmp, "ttest-microfacet",
-                                                    bsdf_xml)
+                                                    ttest_microfacet_xml())
         if code != 0:
             raise AssertionError("the microfacet t-test failed")
         reset_launches()
@@ -1776,13 +1807,9 @@ def harness_chi2_warps() -> dict:
     all must pass.  Returns the seconds of each."""
     from nori_tpu_torch import warp, warptest
 
-    bsdfs = "".join(f'\n  <bsdf type="microfacet"><float name="alpha" '
-                    f'value="{a}"/></bsdf>' for a in CHI2_ALPHAS)
-    xml = (f'<test type="chi2test">\n  <boolean name="dumpFiles" '
-           f'value="false"/>\n  <bsdf type="diffuse"/>{bsdfs}\n</test>\n')
     seconds = {}
     with tempfile.TemporaryDirectory() as tmp:
-        code, seconds["chi2test"] = run_cli(tmp, "chi2test", xml)
+        code, seconds["chi2test"] = run_cli(tmp, "chi2test", chi2_xml())
     if code != 0:
         raise AssertionError("a chi^2 test failed")
     for name in [*warp.WARPS, "microfacet"]:
@@ -1793,6 +1820,52 @@ def harness_chi2_warps() -> dict:
             raise AssertionError(f"warptest {name} failed")
     log(f"  warptest seconds {seconds}")
     return seconds
+
+
+def ref_gates_runner(card: str) -> dict:
+    """nori_tpu_torch.scripts.ref_gates's main at --scale REF_GATES_SCALE
+    on the card over a temporary root holding the microfacet t-test, the
+    furnace and the chi^2 suite of the harness phases, each named as
+    this script's own: every XML must pass with the tests it holds, and
+    the furnace scenes must launch K1 and K2.  Returns the record and
+    its launches."""
+    from nori_tpu_torch.scripts import ref_gates
+
+    # name: (XML, the tests it holds)
+    suites = {"smoke-ttest-microfacet.xml":
+              (ttest_microfacet_xml(), len(TTEST_ANGLES)),
+              "smoke-furnace.xml": (furnace_xml(*zip(*FURNACE)),
+                                    len(FURNACE)),
+              "smoke-chi2test-microfacet.xml":
+              (chi2_xml(), 5 * (1 + len(CHI2_ALPHAS)))}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_furnace(tmp)
+        for name, (xml, _) in suites.items():
+            with open(os.path.join(tmp, name), "w") as f:
+                f.write(xml)
+        out = os.path.join(tmp, "ref_gates.json")
+        t0 = time.time()
+        reset_launches()
+        code = ref_gates.main([out, "--root", tmp, "--scale",
+                               str(REF_GATES_SCALE)], fixtures=tuple(suites))
+        launches = read_launches()
+        seconds = time.time() - t0
+        with open(out) as f:
+            rec = json.load(f)
+    log(f"ref-gates runner at --scale {REF_GATES_SCALE}: exit {code}, "
+        f"{seconds:.1f} s on {card}; launches {launches}")
+    for name, (_, total) in suites.items():
+        r = rec["fixtures"][name]
+        if not (r.get("ok") and r["passed"] == r["total"] == total):
+            raise AssertionError(f"ref-gates runner: {name}: {r}, expected "
+                                 f"{total}/{total}")
+    if code != 0 or not rec["all_ok"]:
+        raise AssertionError(f"ref-gates runner: exit {code}, {rec}")
+    for name in ("entry_min", "resident_sweep"):
+        if launches[name] <= 0:
+            raise AssertionError(f"ref-gates runner: {name} never launched")
+    rec["seconds"] = seconds
+    return dict(record=rec, launches=launches)
 
 
 #: the backends compared on the check rays: (label, accel_mode, switches)
@@ -2213,6 +2286,51 @@ def rmse_gate_phase(dev) -> dict:
     return out
 
 
+def reference_rows_phase(dev, card: str) -> dict:
+    """The rows of scratch/living_room_1024spp_rows.npz (the JAX package's
+    CPU render of the ten rows the 1024-spp reference misplaced, one row
+    per chunk, tools/reference_rows.py) rendered on the card over the
+    same row ranges through the port's checkpoint resume
+    (rmse_gate.render_reference_rows): the exact gate of
+    rmse_gate.exact_gate (RMSE < 1e-3, < 1% of pixels off by more than
+    1e-3) and no pixel off by ROWS_MAX_ABS against the npz, which must be
+    there, and ray counts within 0.1% of the JAX render's (as the parity
+    render).  Returns the gate's numbers, seconds and rays, and the
+    launches."""
+    import numpy as np
+    from nori_tpu_torch.scripts import rmse_gate
+
+    path = rmse_gate.FULL_REF_ROWS
+    if not os.path.exists(path):
+        raise AssertionError(f"reference rows: {path} is missing")
+    with np.load(path) as d:
+        want, rows = d["img"], d["rows"]
+        jax_rays = int(d["rays"].sum())
+    reset_launches()
+    got_rows, img, st = rmse_gate.render_reference_rows(path, device=dev)
+    launches = read_launches()
+    res = rmse_gate.exact_gate(img, want)
+    rel = abs(st["rays"] - jax_rays) / max(jax_rays, 1)
+    log(f"reference rows {rows.tolist()}: rmse {res['rmse']:.3e}, pixels "
+        f"off {res['pixels_off_gt_1e3']:.4f}, max |diff| "
+        f"{res['max_abs_diff']:.3e} (bound {ROWS_MAX_ABS}); rays "
+        f"{st['rays']} (card) vs {jax_rays} (JAX on the CPU); "
+        f"{st['seconds']:.2f} s on {card}; launches {launches}")
+    if got_rows.tolist() != rows.tolist() or not np.isfinite(img).all():
+        raise AssertionError("reference rows: rows differ from the npz's "
+                             "or are not finite")
+    if not (res["pass"] and res["max_abs_diff"] < ROWS_MAX_ABS):
+        raise AssertionError(f"reference rows fail the gate: {res}")
+    if rel > 1e-3:
+        raise AssertionError(f"reference rows: ray counts differ by "
+                             f"{rel:.2%}")
+    for name in ("entry_min", "resident_sweep", "lane_keys"):
+        if launches[name] <= 0:
+            raise AssertionError(f"reference rows: {name} never launched")
+    return dict(res, seconds=st["seconds"], rays=st["rays"],
+                jax_rays=jax_rays, launches=launches)
+
+
 def pathgraph_eval_phase(dev) -> dict:
     """nori_tpu_torch.scripts.pathgraph_eval with PG_EVAL in a temporary
     directory, then the same command again there: the second call must
@@ -2405,6 +2523,9 @@ def main() -> int:
         paths["ttest_furnace"] = ttests.pop("launches")
     with phase("harness: chi^2 and warps"):
         chi2_seconds = harness_chi2_warps()
+    with phase("harness: ref-gates runner"):
+        runner = ref_gates_runner(card)
+        paths["ref_gates_runner"] = runner.pop("launches")
     with phase("living room: backends"):
         backends = backend_queries(sd, rays, shadow)
         backends["parity_render"] = bvh_parity_render(dev)
@@ -2421,12 +2542,16 @@ def main() -> int:
             paths[f"bench_{name}"] = row["launches"]
     with phase("rmse gate (reduced)"):
         gate_record = rmse_gate_phase(dev)
+    with phase("living room: reference rows"):
+        ref_rows = reference_rows_phase(dev, card)
+        paths["living_room_reference_rows"] = ref_rows.pop("launches")
     with phase("path graph: evaluation"):
         pg_eval = pathgraph_eval_phase(dev)
         paths["pathgraph_eval"] = pg_eval.pop("launches")
     log("slice results: " + json.dumps(dict(
         checkpointed=ckpt, ttest_seconds=ttests["seconds"],
-        chi2_warp_seconds=chi2_seconds, backends=backends,
+        chi2_warp_seconds=chi2_seconds, ref_gates_runner=runner["record"],
+        reference_rows=ref_rows, backends=backends,
         pathgraph_parity=pg_parity, pathgraph_protocol=pg_protocol,
         sharded_living_room=sharded, sharded_ajax_normals=ajax_sharded,
         kernel_report=report["report"], bench=bench, rmse_gate=gate_record,

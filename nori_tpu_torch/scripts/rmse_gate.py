@@ -24,7 +24,13 @@ At --spp 1024 the seed-11 render of link 3 is also held, under link 1's
 criterion, against the JAX package's render of the same seed and size,
 scratch/living_room_1024spp.exr, in the precision the file stores (the
 card's image rounded through float16 when the file is half): link 1 at
-full size, with no extra render.
+full size, with no extra render.  That file's last chunk was ragged, and
+the JAX splat misplaced its samples in ten rows (reference_ragged_rows);
+where scratch/living_room_1024spp_rows.npz exists (those rows rendered
+again by the JAX package on the CPU, one row per chunk, by
+tools/reference_rows.py), the full-size link holds the card's image to a
+composite: the EXR's other rows and the npz's rows, the latter in
+float32 (composite_reference).
 
 Usage (from the repository root, on a CUDA card):
     python -m nori_tpu_torch.scripts.rmse_gate [--spp 1024]
@@ -48,6 +54,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 REF_NPZ = os.path.join(ROOT, "scratch", "rmse_gate", "lr_cpu_ref.npz")
 FULL_REF_EXR = os.path.join(ROOT, "scratch", "living_room_1024spp.exr")
+#: FULL_REF_EXR's misplaced rows rendered again (tools/reference_rows.py)
+FULL_REF_ROWS = os.path.join(ROOT, "scratch", "living_room_1024spp_rows.npz")
 #: the spp and seed FULL_REF_EXR was rendered at (scratch/README.md)
 FULL_REF_SPP, FULL_REF_SEED = 1024, 11
 OUT_JSON = os.path.join(ROOT, "RMSE_GATE_torch.json")
@@ -131,13 +139,85 @@ def reference_ragged_rows(width: int, height: int, spp: int, chunk: int,
     return rows
 
 
+def load_reference_rows(path: str, seed: int, spp: int, width: int,
+                        height: int):
+    """(row indices, float32 (len(rows), W, 3)) of the npz that
+    tools/reference_rows.py writes, or None where there is no such file;
+    raises when it was rendered at another seed, spp or size."""
+    if not os.path.exists(path):
+        return None
+    with np.load(path) as d:
+        got = (int(d["seed"]), int(d["spp"]), *map(int, d["resolution"]))
+        if got != (seed, spp, width, height):
+            raise ValueError(f"{path}: seed, spp, size {got} are not "
+                             f"{(seed, spp, width, height)}")
+        return d["rows"].astype(np.int64), d["img"].astype(np.float32)
+
+
+def composite_reference(ref, rows, row_img):
+    """`ref` with its rows `rows` replaced by `row_img`."""
+    out = np.array(ref, np.float32)
+    out[rows] = row_img
+    return out
+
+
+def render_rows(scene, seed: int, first: int, last: int, n_lanes: int,
+                workdir: str, device=None):
+    """Rows first..last of `scene`'s image on `device`, one row (W x spp
+    work items) per chunk, by resuming render_wavefront from a checkpoint
+    at row `first`: a zero film, next_q0 = first x W x spp, 0 rays and
+    the render's key.  Work items are pixel-major and the counter-based
+    RNG keys on them, so the rows whose filter taps all lie in
+    first..last equal those of an uncut render up to the order of the
+    film's sums; the JAX package's checkpoints are the same file
+    (tools/reference_rows.py).  Returns ((H, W, 3) image, stats)."""
+    from nori_tpu_torch import wavefront as wf
+
+    w, _ = scene.camera.output_size
+    spp = scene.sampler.sample_count
+    chunk = w * spp
+    path = os.path.join(workdir, f"rows_{first}.npz")
+    new_film, _, _ = wf.make_dense_splat(scene, chunk, "cpu")
+    np.savez(path, key=wf._checkpoint_key(scene, spp, seed, chunk),
+             film=new_film().numpy(), next_q0=first * chunk, rays=0)
+    return wf.render_wavefront(scene, spp=spp, seed=seed, n_lanes=n_lanes,
+                               chunk=chunk, checkpoint_path=path,
+                               max_chunks=last - first + 1, device=device)
+
+
+def render_reference_rows(path: str = FULL_REF_ROWS, n_lanes: int = 524288,
+                          device=None):
+    """The rows of the npz at `path` rendered on `device` over the same
+    row ranges (its rendered_rows) as tools/reference_rows.py rendered
+    them.  Returns (rows, float32 (len(rows), W, 3), {"seconds", "rays"}:
+    summed over the ranges)."""
+    import tempfile
+
+    with np.load(path) as d:
+        rows, ranges = d["rows"], d["rendered_rows"].tolist()
+        (w, h), spp, seed = d["resolution"], int(d["spp"]), int(d["seed"])
+    sc = _scene(int(w), int(h), spp)
+    img = np.zeros((len(rows), int(w), 3), np.float32)
+    stats = {"seconds": 0.0, "rays": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        for first, last in ranges:
+            full, st = render_rows(sc, seed, first, last, n_lanes, tmp,
+                                   device)
+            keep = (rows >= first) & (rows <= last)
+            img[keep] = full[rows[keep]]
+            stats["seconds"] += st["seconds"]
+            stats["rays"] += st["rays"]
+    return rows, img, stats
+
+
 def _rel(path: str) -> str:
     return os.path.relpath(path, ROOT)
 
 
 def run_gate(spp_full: int = 1024, n_lanes: int = 524288, device=None,
              json_out: str | None = OUT_JSON, ref_npz: str = REF_NPZ,
-             full_ref: str = FULL_REF_EXR) -> dict:
+             full_ref: str = FULL_REF_EXR,
+             full_rows: str = FULL_REF_ROWS) -> dict:
     """Run the three links on `device` (default: the first CUDA device;
     device.resolve_device) and write the record to `json_out`."""
     from nori_tpu_torch.bench import card
@@ -185,7 +265,6 @@ def run_gate(spp_full: int = 1024, n_lanes: int = 524288, device=None,
         mine = a.astype(np.float16).astype(np.float32) \
             if kinds == {"half"} else a
         ref_full = read_exr(full_ref)
-        full = exact_gate(mine, ref_full)
         # the rows the reference's own splat misplaced, and the gate on
         # the others
         radius = _scene(FULL_W, FULL_H, spp_full).camera.rfilter.radius
@@ -193,24 +272,45 @@ def run_gate(spp_full: int = 1024, n_lanes: int = 524288, device=None,
                                 spp_full)
         ragged = reference_ragged_rows(FULL_W, FULL_H, spp_full, chunk,
                                        radius)
+        rest = exact_gate(mine[~ragged], ref_full[~ragged])
+        jax_rows = load_reference_rows(full_rows, FULL_REF_SEED, spp_full,
+                                       FULL_W, FULL_H)
+        extra = {}
+        if jax_rows is not None:
+            # those rows from the JAX package's row-chunked render, held
+            # in float32
+            rows, row_img = jax_rows
+            ref_full = composite_reference(ref_full, rows, row_img)
+            mine = composite_reference(mine, rows, a[rows])
+            extra = dict(reference_rows=_rel(full_rows),
+                         jax_rows=rows.tolist(),
+                         ragged_rows_against_jax_rows=exact_gate(
+                             a[rows], row_img))
+        full = exact_gate(mine, ref_full)
         full.update(reference=_rel(full_ref), stored_as=sorted(kinds),
                     resolution=[FULL_W, FULL_H], spp=spp_full,
                     seed=FULL_REF_SEED, n_lanes=n_lanes,
                     reference_chunk=chunk,
                     reference_ragged_rows=np.flatnonzero(ragged).tolist(),
-                    outside_ragged_rows=exact_gate(mine[~ragged],
-                                                   ref_full[~ragged]))
+                    outside_ragged_rows=rest, **extra)
         out["exact_gate_full"] = full
-        rest = full["outside_ragged_rows"]
         print(f"1 exact gate at full size vs {_rel(full_ref)} "
-              f"({'/'.join(sorted(kinds))}): max|diff|="
-              f"{full['max_abs_diff']:.2e} rmse={full['rmse']:.2e} "
+              f"({'/'.join(sorted(kinds))})"
+              + (f" and {_rel(full_rows)}" if extra else "")
+              + f": max|diff|={full['max_abs_diff']:.2e} "
+              f"rmse={full['rmse']:.2e} "
               f"off-frac={full['pixels_off_gt_1e3']:.4f} "
               f"pass={full['pass']}; outside the {int(ragged.sum())} rows "
               f"the reference's ragged last chunk misplaced: max|diff|="
               f"{rest['max_abs_diff']:.2e} rmse={rest['rmse']:.2e} "
               f"off-frac={rest['pixels_off_gt_1e3']:.4f} "
               f"pass={rest['pass']}", flush=True)
+        if extra:
+            on = extra["ragged_rows_against_jax_rows"]
+            print(f"  those rows vs the JAX rows: max|diff|="
+                  f"{on['max_abs_diff']:.2e} rmse={on['rmse']:.2e} "
+                  f"off-frac={on['pixels_off_gt_1e3']:.4f} "
+                  f"pass={on['pass']}", flush=True)
     a256, _ = _render(SMALL["width"], SMALL["height"], 1024, 31, 65536,
                       device)
     b256, _ = _render(SMALL["width"], SMALL["height"], 1024, 32, 65536,

@@ -176,7 +176,8 @@ def test_rmse_gate_matches_the_jax_script(tmp_path, monkeypatch, offset):
     want = jax_gate.run_gate(spp_full=1024)
     got = torch_gate.run_gate(spp_full=1024, device="cpu",
                               json_out=str(tmp_path / "torch.json"),
-                              ref_npz=str(npz), full_ref=full_ref)
+                              ref_npz=str(npz), full_ref=full_ref,
+                              full_rows=str(tmp_path / "no_rows.npz"))
     assert want["exact_gate"]["pass"] == (offset < 1e-3)
     for link in ("exact_gate", "mc_scaling", "matched_gate"):
         for key, value in want[link].items():

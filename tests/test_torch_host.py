@@ -278,6 +278,18 @@ def test_import_leaves_jax_out():
         "import nori_tpu_torch.scripts.rmse_gate\n"
         "import nori_tpu_torch.scripts.pathgraph_eval\n"
         "import nori_tpu_torch.scripts.pg_protocol_report\n"
+        "import nori_tpu_torch.scripts.ref_gates\n"
+        # the port's console scripts (pyproject.toml) resolve
+        "import importlib, tomllib\n"
+        "scripts = tomllib.load(open('pyproject.toml', 'rb'))"
+        "['project']['scripts']\n"
+        "port = {k: v for k, v in scripts.items() "
+        "if v.startswith('nori_tpu_torch.')}\n"
+        "assert sorted(port) == ['nori-torch-pg', 'nori-torch-pg-visual', "
+        "'nori-torch-warptest', 'nori-tpu-torch'], port\n"
+        "for target in port.values():\n"
+        "    mod, attr = target.split(':')\n"
+        "    assert callable(getattr(importlib.import_module(mod), attr))\n"
         "bad = [m for m in sys.modules if m in ('jax', 'nori_tpu') or "
         "m.startswith(('jax.', 'nori_tpu.'))]\n"
         "assert not bad, bad\n"
