@@ -66,6 +66,12 @@ its kernels:
   render_sharded at the same rank counts against the single-device
   batch driver (equal rays, the same image bits), with K5 and never K2
   on every rank.  Each rank reads its own launch counts;
+* the multi-card entry point's dry run (nori_tpu_torch.scripts.multicard,
+  the counterpart of __graft_entry__.dryrun_multichip) at MULTICARD_RANKS
+  gloo ranks spawned on the one card: a sharded batch pass and a small
+  sharded wavefront with finite results, and the 96x54 living room
+  twice, each rank launching K1 and K2, to the rays and image bits
+  of render_wavefront on the card, the repeat bit-identical;
 * the sweep report (nori_tpu_torch.profiling.kernel_report) on the full
   living room's 131,072-lane pool after 8 wavefront steps: candidate
   pairs per ray, the closest-hit sweep's time and rates (K1, K2, K3);
@@ -189,6 +195,8 @@ CKPT_CHUNKS = 4
 #: rank counts of the sharded phases: one nccl rank in this process, two
 #: gloo ranks spawned on the one card (NCCL refuses two ranks on a card)
 SHARDED_RANKS = (1, 2)
+#: ranks of the multi-card dry run: gloo ranks spawned on the one card
+MULTICARD_RANKS = 2
 #: ttest-microfacet.xml's angles and reference means (tests/test_bsdf.py)
 TTEST_ANGLES = (0, 45, 60, 80, 85)
 TTEST_REFERENCES = (0.207067, 0.215733, 0.247884, 0.430936, 0.519016)
@@ -1653,6 +1661,19 @@ def sharded_ajax(dev) -> dict:
     return out
 
 
+def multicard_dry_run(dev) -> dict:
+    """nori_tpu_torch.scripts.multicard's dry-run phase at MULTICARD_RANKS
+    gloo ranks sharing `dev` (it raises on a failed check, and on a rank
+    that launched none of K1 and K2 in the living room); returns its
+    record."""
+    from nori_tpu_torch.scripts import multicard
+
+    rec = multicard.dry_run(MULTICARD_RANKS, "gloo", str(dev))
+    for r, n in enumerate(rec["living_room"]["launches"]):
+        log(f"  rank {r} launches {n}")
+    return rec
+
+
 def room_kernel_report(dev) -> dict:
     """profiling.kernel_report on FULL's scene at CHECK_LANES rays after
     8 wavefront steps; returns the report and its launches."""
@@ -2515,6 +2536,14 @@ def main() -> int:
         for ranks in SHARDED_RANKS:
             paths[f"ajax_normals_sharded_{ranks}"] = summed(
                 ajax_sharded[ranks]["launches"])
+    with phase("multicard: dry run"):
+        reset_launches()
+        dry = multicard_dry_run(dev)
+        # the record keeps each rank's launched kernels only
+        paths["multicard_dry_run"] = {
+            k: sum(n.get(k, 0) for n in dry["living_room"]["launches"])
+            for k in KERNELS}
+        paths["multicard_dry_run_reference"] = read_launches()
     with phase("living room: kernel report"):
         report = room_kernel_report(dev)
         paths["kernel_report"] = report.pop("launches")
@@ -2554,6 +2583,7 @@ def main() -> int:
         reference_rows=ref_rows, backends=backends,
         pathgraph_parity=pg_parity, pathgraph_protocol=pg_protocol,
         sharded_living_room=sharded, sharded_ajax_normals=ajax_sharded,
+        multicard_dry_run=dry,
         kernel_report=report["report"], bench=bench, rmse_gate=gate_record,
         pathgraph_eval=pg_eval["result"])))
     for name in ("stream_sweep", "stream_sweep_culled"):

@@ -14,6 +14,8 @@ Counterpart of `nori_tpu/accel/pallas_mt.py`, every kernel of it:
 Each wrapper launches its CUDA kernel (nori_tpu_torch/csrc/) for
 tensors on a CUDA device and uses its plain version, defined beside it,
 only for tensors on the CPU; there is no fallback from a failed kernel.
+Each launch runs with the tensors' card as the current device
+(`_launch`), so a render on cuda:1 from a process on cuda:0 runs there.
 Each counts its kernel launches in a plain integer attribute
 (`entry_min.launches`, ...), which a run can reset and read to show
 that its main path went through the kernels.  The sweeps take an
@@ -100,8 +102,13 @@ def _check_rays(rays: torch.Tensor):
                          f"got {tuple(rays.shape)}")
 
 
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def _launch(entry, device, *args) -> int:
+    """Call the C entry point `entry` on `device`'s current stream (its
+    last argument) with `device` as the current device, and return its
+    CUDA error: the entry points call the runtime on the calling
+    thread's current device, which need not be the tensors' card."""
+    with torch.cuda.device(device):
+        return entry(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def _visits_ptr(visits, n_rt: int, device) -> int:
@@ -200,9 +207,10 @@ def entry_min(tile_bounds, rays, idx_bits: int | None = None):
         (n // TILE_N, n_tt), device=rays.device,
         dtype=torch.float32 if idx_bits is None else torch.int32)
     lib = cuda_build.load()
-    err = lib.entry_min_launch(
-        tile_bounds.data_ptr(), rays.data_ptr(), out.data_ptr(), n_tt, n,
-        0 if idx_bits is None else (1 << idx_bits) - 1, _stream(rays.device))
+    err = _launch(
+        lib.entry_min_launch, rays.device, tile_bounds.data_ptr(),
+        rays.data_ptr(), out.data_ptr(), n_tt, n,
+        0 if idx_bits is None else (1 << idx_bits) - 1)
     entry_min.launches += 1
     _raise_on(err, "entry_min")
     return out
@@ -385,12 +393,13 @@ def _resident_launch(op: int, tris_op, T: int, keys, idx_bits: int, rays,
     t = torch.empty((n,), dtype=torch.float32, device=rays.device)
     idx = torch.empty((n,), dtype=torch.int32, device=rays.device)
     lib = cuda_build.load()
-    err = lib.resident_sweep_launch(
-        tris_op.data_ptr(), op, T, keys.data_ptr(), n_keys, idx_bits,
-        rays.data_ptr(), n, t.data_ptr(), idx.data_ptr(), int(any_hit),
+    err = _launch(
+        lib.resident_sweep_launch, rays.device, tris_op.data_ptr(), op, T,
+        keys.data_ptr(), n_keys, idx_bits, rays.data_ptr(), n, t.data_ptr(),
+        idx.data_ptr(), int(any_hit),
         0 if tile_ah is None else tile_ah.data_ptr(),
-        _visits_ptr(visits, n // TILE_N, rays.device), best, items,
-        counters, counters + 8, _stream(rays.device))
+        _visits_ptr(visits, n // TILE_N, rays.device), best, items, counters,
+        counters + 8)
     # a workspace allocated here may be freed on return: the caching
     # allocator hands it out again only to work queued after the sweep
     # on the same stream
@@ -636,10 +645,10 @@ def lane_keys(tile_bounds, rays):
     k1 = torch.empty((n,), dtype=torch.int32, device=rays.device)
     k2 = torch.empty((n,), dtype=torch.int32, device=rays.device)
     lib = cuda_build.load()
-    err = lib.lane_keys_launch(
-        tile_bounds.data_ptr(), n_tt, -(-n_tt // 128) * 128,
-        rays.data_ptr(), n, k1.data_ptr(), k2.data_ptr(), lane_group(n_tt),
-        _stream(rays.device))
+    err = _launch(
+        lib.lane_keys_launch, rays.device, tile_bounds.data_ptr(), n_tt,
+        -(-n_tt // 128) * 128, rays.data_ptr(), n, k1.data_ptr(),
+        k2.data_ptr(), lane_group(n_tt))
     lane_keys.launches += 1
     _raise_on(err, "lane_keys")
     return k1, k2
@@ -742,13 +751,12 @@ def _stream_launch(tris_op, keys, idx_bits: int, rays, any_hit: bool,
     t = torch.empty((n,), dtype=torch.float32, device=rays.device)
     idx = torch.empty((n,), dtype=torch.int32, device=rays.device)
     lib = cuda_build.load()
-    err = lib.stream_sweep_launch(
-        tris_op.data_ptr(), int(use_bw), tris_op.shape[1], keys.data_ptr(),
-        keys.shape[1], idx_bits, rays.data_ptr(), n, t.data_ptr(),
-        idx.data_ptr(), int(any_hit), n_sub,
+    err = _launch(
+        lib.stream_sweep_launch, rays.device, tris_op.data_ptr(), int(use_bw),
+        tris_op.shape[1], keys.data_ptr(), keys.shape[1], idx_bits,
+        rays.data_ptr(), n, t.data_ptr(), idx.data_ptr(), int(any_hit), n_sub,
         0 if sub_boxes is None else sub_boxes.data_ptr(),
-        _visits_ptr(visits, n // TILE_N, rays.device), *ptrs,
-        _stream(rays.device))
+        _visits_ptr(visits, n // TILE_N, rays.device), *ptrs)
     # a workspace allocated here may be freed on return: the caching
     # allocator hands it out again only to work queued after the sweep
     # on the same stream
@@ -947,11 +955,12 @@ def mt_sweep(tris_packed, tile_bounds, scene_bounds, rays,
             torch.empty((n,), dtype=torch.float32, device=rays.device))
     workspace, ptrs = _stream_ptrs(workspace, n, rays.device)
     lib = cuda_build.load()
-    err = lib.mt_sweep_launch(
-        tris_packed.data_ptr(), T, order.data_ptr(), entry.data_ptr(),
-        tb.data_ptr(), scene_bounds.data_ptr(), n_tt, rays.data_ptr(), n,
+    err = _launch(
+        lib.mt_sweep_launch, rays.device, tris_packed.data_ptr(), T,
+        order.data_ptr(), entry.data_ptr(), tb.data_ptr(),
+        scene_bounds.data_ptr(), n_tt, rays.data_ptr(), n,
         *(o.data_ptr() for o in outs), int(any_hit), int(cull),
-        _visits_ptr(visits, n_rt, rays.device), *ptrs, _stream(rays.device))
+        _visits_ptr(visits, n_rt, rays.device), *ptrs)
     mt_sweep.launches += 1
     _raise_on(err, "mt_sweep")
     return outs

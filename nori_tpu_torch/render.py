@@ -101,13 +101,15 @@ def make_sample_pass_q(scene, batch: int, device=None):
 class _PendingCount:
     """A device count read on the host one window late: on a CUDA
     device the copy is asynchronous and waits only for the work queued
-    before it, not for the steps enqueued since."""
+    before it, not for the steps enqueued since.  The event that marks
+    the copy's end is recorded on the count's card, whatever the
+    thread's current device."""
 
     def __init__(self, count: torch.Tensor):
         if count.is_cuda:
             self._host = count.to("cpu", non_blocking=True)
             self._event = torch.cuda.Event()
-            self._event.record()
+            self._event.record(torch.cuda.current_stream(count.device))
         else:
             self._host, self._event = count, None
 

@@ -279,6 +279,7 @@ def test_import_leaves_jax_out():
         "import nori_tpu_torch.scripts.pathgraph_eval\n"
         "import nori_tpu_torch.scripts.pg_protocol_report\n"
         "import nori_tpu_torch.scripts.ref_gates\n"
+        "import nori_tpu_torch.scripts.multicard\n"
         # the port's console scripts (pyproject.toml) resolve
         "import importlib, tomllib\n"
         "scripts = tomllib.load(open('pyproject.toml', 'rb'))"
