@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from nori_tpu_torch import spans
 from nori_tpu_torch.accel.traverse import intersect, occluded
 from nori_tpu_torch.bsdf import E_DISCRETE, eval_bsdf, pdf_bsdf, sample_bsdf
 from nori_tpu_torch.core.vecmath import (
@@ -154,20 +155,25 @@ def make_path_li(mode: int, max_depth: int = MAX_DEPTH):
         prev_pdf = torch.zeros((n,), dtype=torch.float32, device=dev)
         rays = torch.zeros((), dtype=torch.int64, device=dev)
         for depth in range(max_depth):
-            if not bool(alive.any()):
-                break
-            rays = rays + alive.sum()
-            its, frame, s, L, beta, alive, n_shadow, _ = path_vertex(
-                sd, mode, o, d, mint, maxt, alive,
-                torch.full((n,), depth, dtype=torch.int32, device=dev),
-                beta, L, spec, prev_pdf, seed, lanes)
-            rays = rays + n_shadow
-            spec = s.measure == E_DISCRETE
-            prev_pdf = s.pdf
-            o = its.p
-            d = to_world(frame, s.wo)
-            mint = torch.full((n,), EPSILON, dtype=torch.float32, device=dev)
-            maxt = torch.full((n,), 1e30, dtype=torch.float32, device=dev)
+            with spans.span("batch.depth"):
+                with spans.sync("alive"):
+                    go = bool(alive.any())
+                if not go:
+                    break
+                rays = rays + alive.sum()
+                its, frame, s, L, beta, alive, n_shadow, _ = path_vertex(
+                    sd, mode, o, d, mint, maxt, alive,
+                    torch.full((n,), depth, dtype=torch.int32, device=dev),
+                    beta, L, spec, prev_pdf, seed, lanes)
+                rays = rays + n_shadow
+                spec = s.measure == E_DISCRETE
+                prev_pdf = s.pdf
+                o = its.p
+                d = to_world(frame, s.wo)
+                mint = torch.full((n,), EPSILON, dtype=torch.float32,
+                                  device=dev)
+                maxt = torch.full((n,), 1e30, dtype=torch.float32,
+                                  device=dev)
         return L, {"rays": rays}
 
     return li

@@ -35,6 +35,7 @@ import traceback
 import torch
 import torch.distributed as dist
 
+from nori_tpu_torch import spans
 from nori_tpu_torch.accel.sweep import launch_counters
 from nori_tpu_torch.device import resolve_device
 from nori_tpu_torch.integrators.path import MIS
@@ -328,22 +329,24 @@ def render_sharded_wavefront(scene, group=None, spp: int | None = None,
     """
     device = resolve_device(device)
     coll = collectives(group, device)
-    sd, spp = prepare(scene, spp, device)
-    w, h = scene.camera.output_size
-    mode = getattr(scene.integrator, "mode", MIS)
-    max_depth = getattr(scene.integrator, "max_depth", MAX_DEPTH)
-    n_dev = coll.size
-    total_q = w * h * spp
-    n_lanes_dev = min(n_lanes_dev, max(4096, total_q // n_dev + 1))
-    if chunk_dev is None:
-        chunk_dev = min(-(-total_q // n_dev), 64 * n_lanes_dev)
-    chunk_dev = max(spp, (chunk_dev // spp) * spp)
-    steppers, _ = make_sharded_wavefront(scene, mode, group, n_lanes_dev,
-                                         chunk_dev, max_depth, device=device)
-    return render_chunks(
-        scene, sd, spp, seed, steppers, chunk_dev, device, coll,
-        check_every, max_iters * check_every, checkpoint_path,
-        f":ndev={n_dev}", verbose=verbose)
+    with spans.span("image"):
+        sd, spp = prepare(scene, spp, device)
+        w, h = scene.camera.output_size
+        mode = getattr(scene.integrator, "mode", MIS)
+        max_depth = getattr(scene.integrator, "max_depth", MAX_DEPTH)
+        n_dev = coll.size
+        total_q = w * h * spp
+        n_lanes_dev = min(n_lanes_dev, max(4096, total_q // n_dev + 1))
+        if chunk_dev is None:
+            chunk_dev = min(-(-total_q // n_dev), 64 * n_lanes_dev)
+        chunk_dev = max(spp, (chunk_dev // spp) * spp)
+        steppers, _ = make_sharded_wavefront(scene, mode, group, n_lanes_dev,
+                                             chunk_dev, max_depth,
+                                             device=device)
+        return render_chunks(
+            scene, sd, spp, seed, steppers, chunk_dev, device, coll,
+            check_every, max_iters * check_every, checkpoint_path,
+            f":ndev={n_dev}", verbose=verbose)
 
 
 def render_sharded(scene, group=None, spp: int | None = None, seed: int = 0,
@@ -356,8 +359,9 @@ def render_sharded(scene, group=None, spp: int | None = None, seed: int = 0,
     ((H, W, 3) numpy image, stats), the same image on every rank."""
     device = resolve_device(device)
     coll = collectives(group, device)
-    sd, spp = prepare(scene, spp, device)
-    return render_batches(scene, sd, spp, seed, batch, device, coll)
+    with spans.span("image"):
+        sd, spp = prepare(scene, spp, device)
+        return render_batches(scene, sd, spp, seed, batch, device, coll)
 
 
 def render_jobs(device, jobs, switches=None) -> list:

@@ -17,6 +17,7 @@ import time
 
 import torch
 
+from nori_tpu_torch import spans
 from nori_tpu_torch.core import rng
 from nori_tpu_torch.device import resolve_device  # noqa: F401 (re-export)
 from nori_tpu_torch.film import FilmSpec, splat
@@ -144,10 +145,11 @@ class Solo:
 def prepare(scene, spp: int | None, device):
     """Compile `scene` on `device` and fix its sample count; returns
     (scene data, spp)."""
-    sd = scene.compile(device)
-    if spp is not None:
-        scene.sampler.sample_count = spp
-    scene.integrator.preprocess(scene)
+    with spans.span("prepare"):
+        sd = scene.compile(device)
+        if spp is not None:
+            scene.sampler.sample_count = spp
+        scene.integrator.preprocess(scene)
     return sd, scene.sampler.sample_count
 
 
@@ -168,16 +170,21 @@ def make_batch_pass(scene, batch: int, device=None, coll=Solo):
     share = batch // coll.size
     total_q = math.prod(scene.camera.output_size) * \
         scene.sampler.sample_count
-    trace = make_sample_pass_q(scene, share, device)
-    new_film, splat_chunk, finalize = make_dense_splat(scene, batch, device)
+    with spans.span("build"):
+        trace = make_sample_pass_q(scene, share, device)
+        new_film, splat_chunk, finalize = make_dense_splat(scene, batch,
+                                                           device)
 
     def pass_fn(sd, film, seed, q0: int):
-        vals, rays = trace(sd, seed, q0 + coll.rank * share)
-        rays = coll.gather_ints(rays)
-        parts = coll.gather(vals)
-        if parts is not None:
-            vals = parts[0] if len(parts) == 1 else torch.cat(parts)
-            film = splat_chunk(film, vals, seed, q0, total_q)
+        with spans.span("batch"):
+            vals, rays = trace(sd, seed, q0 + coll.rank * share)
+            with spans.span("gather"):
+                rays = coll.gather_ints(rays)
+                parts = coll.gather(vals)
+            if parts is not None:
+                with spans.span("splat"):
+                    vals = parts[0] if len(parts) == 1 else torch.cat(parts)
+                    film = splat_chunk(film, vals, seed, q0, total_q)
         return film, rays
 
     return new_film, pass_fn, finalize
@@ -204,15 +211,18 @@ def render_batches(scene, sd, spp: int, seed: int, batch: int | None,
     n_batches = (total_q + batch - 1) // batch
     for b in range(n_batches):
         film, rays = pass_fn(sd, film, seed, b * batch)
+        spans.count("batches")
         ray_counts.append(rays)
         if verbose and coll.rank == 0 \
                 and (b + 1) % max(1, n_batches // 10) == 0:
             print(f"  batch {b + 1}/{n_batches}  ({time.time() - t0:.2f}s)")
     img = finalize(film) if coll.rank == 0 else torch.empty(
         (h, w, 3), dtype=torch.float32, device=device)
-    img = coll.broadcast(img).cpu().numpy()
+    with spans.sync("copy_out"):
+        img = coll.broadcast(img).cpu().numpy()
     elapsed = time.time() - t0
-    total_rays = int(torch.cat(ray_counts).sum())
+    with spans.sync("rays"):
+        total_rays = int(torch.cat(ray_counts).sum())
     return img, {
         "spp": spp,
         "seconds": elapsed,
@@ -231,9 +241,10 @@ def render(scene, spp: int | None = None, seed: int = 0,
     first CUDA device; resolve_device); returns (image (H, W, 3) numpy,
     stats dict)."""
     device = resolve_device(device)
-    sd, spp = prepare(scene, spp, device)
-    return render_batches(scene, sd, spp, seed, batch, device,
-                          verbose=verbose)
+    with spans.span("image"):
+        sd, spp = prepare(scene, spp, device)
+        return render_batches(scene, sd, spp, seed, batch, device,
+                              verbose=verbose)
 
 
 def render_to_files(scene, out_base: str, spp: int | None = None,

@@ -43,7 +43,7 @@ import zipfile
 import numpy as np
 import torch
 
-from nori_tpu_torch import config
+from nori_tpu_torch import config, spans
 from nori_tpu_torch.bitmap import write_png
 from nori_tpu_torch.accel.sweep import lane_keys, pack_rays
 from nori_tpu_torch.accel.traverse import (
@@ -246,125 +246,135 @@ def make_wavefront_stepper(scene, mode: int, n_lanes: int, chunk: int,
         beta, L = st["beta"], st["L"]
         spec, prev_pdf = st["spec"], st["prev_pdf"]
 
-        rays = rays + active.sum()
-        hit = None
-        if merged:
-            # the previous step's mixed sweep traced these rays; the
-            # first step of a chunk primes with one closest sweep
-            if st["primed"]:
-                hit_t, hit_tri = st["hit_t"], st["hit_tri"]
-            else:
-                h = intersect(sd, o, d, mint, maxt)
-                hit_t = torch.where(h.valid, h.t, float("inf"))
-                hit_tri = torch.where(h.valid, h.tri, -1)
-            rp_cur, _ = pack_rays(o, d, mint, maxt)
-            hit = sweep_hit_epilogue(sd, rp_cur, hit_t, hit_tri, N)
-        its, frame, s, L, beta, alive, n_shadow, deferred = path_vertex(
-            sd, mode, o, d, mint, maxt, active, depth, beta, L, spec,
-            prev_pdf, seed, q, hit=hit, defer_shadow=merged)
-        rays = rays + n_shadow
-        alive = alive & (depth + 1 < max_depth)
+        with spans.span("step.vertex"):
+            rays = rays + active.sum()
+            hit = None
+            if merged:
+                # the previous step's mixed sweep traced these rays; the
+                # first step of a chunk primes with one closest sweep
+                if st["primed"]:
+                    hit_t, hit_tri = st["hit_t"], st["hit_tri"]
+                else:
+                    h = intersect(sd, o, d, mint, maxt)
+                    hit_t = torch.where(h.valid, h.t, float("inf"))
+                    hit_tri = torch.where(h.valid, h.tri, -1)
+                rp_cur, _ = pack_rays(o, d, mint, maxt)
+                hit = sweep_hit_epilogue(sd, rp_cur, hit_t, hit_tri, N)
+            its, frame, s, L, beta, alive, n_shadow, deferred = \
+                path_vertex(sd, mode, o, d, mint, maxt, active, depth,
+                            beta, L, spec, prev_pdf, seed, q, hit=hit,
+                            defer_shadow=merged)
+            rays = rays + n_shadow
+            alive = alive & (depth + 1 < max_depth)
 
-        # ---- terminate ----------------------------------------------
-        done = active & ~alive
-        # record columns captured BEFORE regeneration overwrites q/L;
-        # other rows get the sentinel so garbage window rows never
-        # collide with a real sample slot
-        rec_q = torch.where(done, q, REC_SENTINEL)
-        rec_l = torch.where(done[:, None], L, 0.0)
-        n_flush = done.sum()
+        with spans.span("step.regen"):
+            # ---- terminate ------------------------------------------
+            done = active & ~alive
+            # record columns captured BEFORE regeneration overwrites
+            # q/L; other rows get the sentinel so garbage window rows
+            # never collide with a real sample slot
+            rec_q = torch.where(done, q, REC_SENTINEL)
+            rec_l = torch.where(done[:, None], L, 0.0)
+            n_flush = done.sum()
 
-        # ---- regenerate ---------------------------------------------
-        done64 = done.to(torch.int64)
-        ranks = torch.cumsum(done64, 0) - done64
-        new_q = (next_q + ranks) & _M32
-        next_q = (next_q + n_flush) & _M32
-        regen = done & (new_q < q_hi)
-        q = torch.where(done, new_q, q)
-        active = torch.where(done, regen, active)
+            # ---- regenerate -----------------------------------------
+            done64 = done.to(torch.int64)
+            ranks = torch.cumsum(done64, 0) - done64
+            new_q = (next_q + ranks) & _M32
+            next_q = (next_q + n_flush) & _M32
+            regen = done & (new_q < q_hi)
+            q = torch.where(done, new_q, q)
+            active = torch.where(done, regen, active)
 
-        co, cd, cmint, cmaxt = camera_ray(seed, q)
-        o = torch.where(regen[:, None], co, its.p)
-        d = torch.where(regen[:, None], cd, to_world(frame, s.wo))
-        mint = torch.where(regen, cmint, EPSILON)
-        maxt = torch.where(regen, cmaxt, 1e30)
-        # idle lanes get an empty interval so they do not widen the
-        # sweep's per-ray-tile candidate lists
-        mint = torch.where(active, mint, 1.0)
-        maxt = torch.where(active, maxt, -1.0)
-        depth = torch.where(regen, 0, depth + 1).to(torch.int32)
-        beta = torch.where(regen[:, None], 1.0, beta)
-        L = torch.where(regen[:, None], 0.0, L)
-        spec = torch.where(regen, True, s.measure == E_DISCRETE)
-        prev_pdf = torch.where(regen, 0.0, s.pdf)
+            co, cd, cmint, cmaxt = camera_ray(seed, q)
+            o = torch.where(regen[:, None], co, its.p)
+            d = torch.where(regen[:, None], cd, to_world(frame, s.wo))
+            mint = torch.where(regen, cmint, EPSILON)
+            maxt = torch.where(regen, cmaxt, 1e30)
+            # idle lanes get an empty interval so they do not widen the
+            # sweep's per-ray-tile candidate lists
+            mint = torch.where(active, mint, 1.0)
+            maxt = torch.where(active, maxt, -1.0)
+            depth = torch.where(regen, 0, depth + 1).to(torch.int32)
+            beta = torch.where(regen[:, None], 1.0, beta)
+            L = torch.where(regen[:, None], 0.0, L)
+            spec = torch.where(regen, True, s.measure == E_DISCRETE)
+            prev_pdf = torch.where(regen, 0.0, s.pdf)
 
-        st = dict(q=q, q0=q0, active=active, depth=depth, o=o, d=d,
-                  mint=mint, maxt=maxt, beta=beta, L=L, spec=spec,
-                  prev_pdf=prev_pdf)
+            st = dict(q=q, q0=q0, active=active, depth=depth, o=o, d=d,
+                      mint=mint, maxt=maxt, beta=beta, L=L, spec=spec,
+                      prev_pdf=prev_pdf)
 
         # ---- coherence sort + record window -------------------------
         # Survivors are grouped by their candidate triangle tiles so
         # each 256-lane ray tile's candidate union stays small; freshly
         # terminated lanes sort last, so the flipped record columns put
         # the n_flush real records first in the window.
-        tb = sd.tri_tile_bounds
-        if sort_rays and n_tt <= 28:
-            # exact candidate bitmask in one int key (wavefront.py:449)
-            inv_d = 1.0 / torch.where(
-                torch.abs(d) < 1e-20, torch.where(d < 0, -1e-20, 1e-20), d)
-            t0b = (tb[None, :, 0:3] - o[:, None]) * inv_d[:, None]
-            t1b = (tb[None, :, 3:6] - o[:, None]) * inv_d[:, None]
-            tnb = torch.amax(torch.minimum(t0b, t1b), dim=-1)
-            tfb = torch.amin(torch.maximum(t0b, t1b), dim=-1)
-            cand = ((tnb <= tfb) & (tfb >= mint[:, None])
-                    & (tnb <= maxt[:, None]))
-            bits = torch.bitwise_left_shift(
-                torch.ones(n_tt, dtype=torch.int64, device=device),
-                n_tt - 1 - torch.arange(n_tt, device=device))
-            skey = torch.sum(torch.where(cand, bits[None, :], 0), dim=1)
-            key = torch.where(done, KEY_DONE,
-                              torch.where(active, skey, KEY_IDLE))
-        elif sort_rays:
-            # (first tile | fine mask, coarse mask) from kernel K3,
-            # sorted lexicographically as one int64 (wavefront.py:471)
-            rays_pn, _ = pack_rays(o, d, mint, maxt)
-            if not key_bounds:
-                key_bounds.append(_coarsen_bounds(tb, kc) if kc > 1
-                                  and n_tt >= 2 * kc else tb)
-            sk1, sk2 = lane_keys(key_bounds[0], rays_pn)
-            sk1, sk2 = sk1[:N].to(torch.int64), sk2[:N].to(torch.int64)
-            k1 = torch.where(done, KEY_DONE, torch.where(active, sk1,
-                                                         KEY_IDLE))
-            key = (k1 << 32) | sk2
-        else:
-            key = torch.where(done, KEY_DONE,
-                              torch.where(active, 0, KEY_IDLE))
-        perm = torch.argsort(key, stable=True)
-        m = _pack_state(st, rec_q, rec_l)[perm]
-        st = _unpack_state(m, q0)
+        with spans.span("step.sort"):
+            tb = sd.tri_tile_bounds
+            if sort_rays and n_tt <= 28:
+                # exact candidate bitmask in one int key
+                # (wavefront.py:449)
+                inv_d = 1.0 / torch.where(
+                    torch.abs(d) < 1e-20,
+                    torch.where(d < 0, -1e-20, 1e-20), d)
+                t0b = (tb[None, :, 0:3] - o[:, None]) * inv_d[:, None]
+                t1b = (tb[None, :, 3:6] - o[:, None]) * inv_d[:, None]
+                tnb = torch.amax(torch.minimum(t0b, t1b), dim=-1)
+                tfb = torch.amin(torch.maximum(t0b, t1b), dim=-1)
+                cand = ((tnb <= tfb) & (tfb >= mint[:, None])
+                        & (tnb <= maxt[:, None]))
+                bits = torch.bitwise_left_shift(
+                    torch.ones(n_tt, dtype=torch.int64, device=device),
+                    n_tt - 1 - torch.arange(n_tt, device=device))
+                skey = torch.sum(torch.where(cand, bits[None, :], 0),
+                                 dim=1)
+                key = torch.where(done, KEY_DONE,
+                                  torch.where(active, skey, KEY_IDLE))
+            elif sort_rays:
+                # (first tile | fine mask, coarse mask) from kernel K3,
+                # sorted lexicographically as one int64 (wavefront.py:471)
+                rays_pn, _ = pack_rays(o, d, mint, maxt)
+                if not key_bounds:
+                    key_bounds.append(_coarsen_bounds(tb, kc) if kc > 1
+                                      and n_tt >= 2 * kc else tb)
+                sk1, sk2 = lane_keys(key_bounds[0], rays_pn)
+                sk1 = sk1[:N].to(torch.int64)
+                sk2 = sk2[:N].to(torch.int64)
+                k1 = torch.where(done, KEY_DONE,
+                                 torch.where(active, sk1, KEY_IDLE))
+                key = (k1 << 32) | sk2
+            else:
+                key = torch.where(done, KEY_DONE,
+                                  torch.where(active, 0, KEY_IDLE))
+            perm = torch.argsort(key, stable=True)
+            m = _pack_state(st, rec_q, rec_l)[perm]
+            st = _unpack_state(m, q0)
         if merged:
-            # one mixed launch: closest hits of the sorted next rays and
-            # any hits of this step's shadow rays (in lane order before
-            # the sort)
-            pend, sh_args = deferred
-            t_c, i_c, occ = intersect_mixed(
-                sd, st["o"], st["d"], st["mint"], st["maxt"], *sh_args,
-                raw=True)
-            st["hit_t"], st["hit_tri"] = t_c[:N], i_c[:N]
-            st["primed"] = True
-            # the pending NEE contribution goes to L of surviving lanes
-            # and to the record rows of lanes that ended this step
-            # (their L was captured before the sweep)
-            dlp = (pend * (~occ)[:, None])[perm]
-            done_p = done[perm][:, None]
-            st["L"] = st["L"] + torch.where(done_p, 0.0, dlp)
-            rec_lp = m[:, 20:23] + torch.where(done_p, dlp, 0.0)
-            window = torch.flip(torch.cat([m[:, 19:20], rec_lp], dim=1),
-                                dims=[0])
-        else:
-            window = torch.flip(m[:, 19:23], dims=[0])
-        records.index_copy_(0, w_cur + lane_iota, window)
-        w_cur = w_cur + n_flush
+            with spans.span("step.mixed"):
+                # one mixed launch: closest hits of the sorted next rays
+                # and any hits of this step's shadow rays (in lane order
+                # before the sort)
+                pend, sh_args = deferred
+                t_c, i_c, occ = intersect_mixed(
+                    sd, st["o"], st["d"], st["mint"], st["maxt"], *sh_args,
+                    raw=True)
+                st["hit_t"], st["hit_tri"] = t_c[:N], i_c[:N]
+                st["primed"] = True
+                # the pending NEE contribution goes to L of surviving
+                # lanes and to the record rows of lanes that ended this
+                # step (their L was captured before the sweep)
+                dlp = (pend * (~occ)[:, None])[perm]
+                done_p = done[perm][:, None]
+                st["L"] = st["L"] + torch.where(done_p, 0.0, dlp)
+                rec_lp = m[:, 20:23] + torch.where(done_p, dlp, 0.0)
+                window = torch.flip(
+                    torch.cat([m[:, 19:20], rec_lp], dim=1), dims=[0])
+        with spans.span("step.record"):
+            if not merged:
+                window = torch.flip(m[:, 19:23], dims=[0])
+            records.index_copy_(0, w_cur + lane_iota, window)
+            w_cur = w_cur + n_flush
         return (st, next_q, records, w_cur, rays, q_hi)
 
     def n_active(carry):
@@ -390,7 +400,8 @@ def make_shrink(n_from: int, n_to: int):
         st, next_q, records, w_cur, rays, q_hi = carry
         active = st["active"]
         src = torch.zeros((n_to,), dtype=torch.int64, device=active.device)
-        idx = torch.nonzero(active).squeeze(1)[:n_to]
+        with spans.sync("shrink"):
+            idx = torch.nonzero(active).squeeze(1)[:n_to]
         src[:idx.shape[0]] = idx
         small_active = torch.arange(n_to, device=active.device) < idx.shape[0]
         new_st = {k: (v if not torch.is_tensor(v) or v.dim() == 0
@@ -420,31 +431,38 @@ def run_chunk(steppers, sd, seed, q0: int, q_end: int,
     takes the same decisions).  Raises after max_steps steps.
     """
     init, stages, finalize = steppers
-    carry = init(seed, q0, q_end)
-    it = wide_it = lane_steps = stage = 0
-    pending = None
-    while it < max_steps:
-        step, n_act, _ = stages[stage]
-        for _ in range(check_every):
-            carry = step(sd, carry, seed)
-            it += 1
-            if stage == 0:
-                wide_it += 1
-        lane_steps += check_every * carry[0]["active"].shape[0]
-        handle = count(n_act(carry))
-        if pending is not None:
-            n = pending.value()
-            if n == 0:
-                break
-            # cascade through every stage the stale count qualifies for
-            while stages[stage][2] is not None and n <= (
-                    carry[0]["active"].shape[0] // SHRINK_FACTOR):
-                carry = stages[stage][2](carry)
-                stage += 1
-        pending = handle
-    else:
-        raise RuntimeError("run_chunk did not drain")
-    L_out = finalize(carry[2], q0)
+    with spans.span("chunk"):
+        carry = init(seed, q0, q_end)
+        it = wide_it = lane_steps = stage = 0
+        pending = None
+        while it < max_steps:
+            step, n_act, _ = stages[stage]
+            for _ in range(check_every):
+                with spans.span("step"):
+                    carry = step(sd, carry, seed)
+                spans.count("steps")
+                it += 1
+                if stage == 0:
+                    wide_it += 1
+            lane_steps += check_every * carry[0]["active"].shape[0]
+            handle = count(n_act(carry))
+            if pending is not None:
+                with spans.sync("pending"):
+                    n = pending.value()
+                if n == 0:
+                    break
+                # cascade through every stage the stale count qualifies
+                # for
+                while stages[stage][2] is not None and n <= (
+                        carry[0]["active"].shape[0] // SHRINK_FACTOR):
+                    with spans.span("shrink"):
+                        carry = stages[stage][2](carry)
+                    stage += 1
+            pending = handle
+        else:
+            raise RuntimeError("run_chunk did not drain")
+        with spans.span("finalize"):
+            L_out = finalize(carry[2], q0)
     return L_out, carry[4], (it, wide_it, lane_steps)
 
 
@@ -569,8 +587,9 @@ def _write_checkpoint(path: str, key: str, film, next_q0: int, rays: int):
     the rays so far; written to a temporary file, then renamed over
     `path`, so a cut never leaves half a checkpoint."""
     tmp = path + ".tmp.npz"
-    np.savez(tmp, key=key, film=film.cpu().numpy(), next_q0=next_q0,
-             rays=rays)
+    with spans.sync("copy_out"):
+        film = film.cpu().numpy()
+    np.savez(tmp, key=key, film=film, next_q0=next_q0, rays=rays)
     os.replace(tmp, path)
 
 
@@ -586,17 +605,18 @@ def wavefront_stages(scene, mode: int, n_lanes: int, chunk: int,
         return make_wavefront_stepper(scene, mode, n, chunk, max_depth,
                                       sort_rays, device, merged)
 
-    init, step, n_act, finalize = stepper(n_lanes)
-    stages = []
-    n_cur = n_lanes
-    for _ in range(max_stages):
-        n_next = max(1024, n_cur // SHRINK_FACTOR)
-        if n_next >= n_cur:
-            break
-        stages.append((step, n_act, make_shrink(n_cur, n_next)))
-        _, step, n_act, _ = stepper(n_next)
-        n_cur = n_next
-    stages.append((step, n_act, None))
+    with spans.span("build"):
+        init, step, n_act, finalize = stepper(n_lanes)
+        stages = []
+        n_cur = n_lanes
+        for _ in range(max_stages):
+            n_next = max(1024, n_cur // SHRINK_FACTOR)
+            if n_next >= n_cur:
+                break
+            stages.append((step, n_act, make_shrink(n_cur, n_next)))
+            _, step, n_act, _ = stepper(n_next)
+            n_cur = n_next
+        stages.append((step, n_act, None))
     return init, stages, finalize
 
 
@@ -623,8 +643,9 @@ def render_chunks(scene, sd, spp: int, seed: int, steppers, chunk: int,
     w, h = scene.camera.output_size
     total_q = w * h * spp
     root = coll.rank == 0
-    new_film, splat_chunk, finalize_film = make_dense_splat(
-        scene, chunk, device)
+    with spans.span("build"):
+        new_film, splat_chunk, finalize_film = make_dense_splat(
+            scene, chunk, device)
     film = new_film() if root else None
     global_chunk = coll.size * chunk
     n_chunks = (total_q + global_chunk - 1) // global_chunk
@@ -656,28 +677,35 @@ def render_chunks(scene, sd, spp: int, seed: int, steppers, chunk: int,
         steps_total += its
         wide_total += wide
         lane_steps_total += lsteps
-        ray_counts.append(coll.gather_ints(rays))
-        parts = coll.gather(L_out)
+        with spans.span("gather"):
+            ray_counts.append(coll.gather_ints(rays))
+            parts = coll.gather(L_out)
         chunks_done += 1
         done = q0 + global_chunk >= total_q
         if root:
             # left-associative fold in q order; a rank's part that
             # starts past the last work item adds nothing
-            for r, part in enumerate(parts):
-                if q0 + r * chunk < total_q:
-                    film = splat_chunk(film, part, seed, q0 + r * chunk,
-                                       total_q)
+            with spans.span("splat"):
+                for r, part in enumerate(parts):
+                    if q0 + r * chunk < total_q:
+                        film = splat_chunk(film, part, seed, q0 + r * chunk,
+                                           total_q)
             if checkpoint_path:
-                _write_checkpoint(
-                    checkpoint_path, ck_key, film, q0 + global_chunk,
-                    rays_resumed + int(torch.stack(ray_counts).sum()))
+                with spans.sync("rays"):
+                    rays_so_far = int(torch.stack(ray_counts).sum())
+                _write_checkpoint(checkpoint_path, ck_key, film,
+                                  q0 + global_chunk,
+                                  rays_resumed + rays_so_far)
             if preview_path:
                 # the film so far, in place of the reference's live
                 # screen (src/gui.cpp:19-132)
-                write_png(preview_path, finalize_film(film).cpu().numpy())
+                with spans.sync("copy_out"):
+                    so_far = finalize_film(film).cpu().numpy()
+                write_png(preview_path, so_far)
             if on_chunk is not None:
-                on_chunk(finalize_film(film).cpu().numpy(),
-                         (q0 + global_chunk) / max(total_q, 1))
+                with spans.sync("copy_out"):
+                    so_far = finalize_film(film).cpu().numpy()
+                on_chunk(so_far, (q0 + global_chunk) / max(total_q, 1))
             if verbose:
                 print(f"  chunk {q0 // global_chunk + 1}/{n_chunks} "
                       f"({time.time() - t0:.2f}s)")
@@ -687,10 +715,12 @@ def render_chunks(scene, sd, spp: int, seed: int, steppers, chunk: int,
         os.remove(checkpoint_path)  # complete: nothing to resume
     img = finalize_film(film) if root else torch.empty(
         (h, w, 3), dtype=torch.float32, device=device)
-    img = coll.broadcast(img).cpu().numpy()
+    with spans.sync("copy_out"):
+        img = coll.broadcast(img).cpu().numpy()
     dt = time.time() - t0
-    rays_per_dev = (torch.stack(ray_counts).sum(0).tolist() if ray_counts
-                    else [0] * coll.size)
+    with spans.sync("rays"):
+        rays_per_dev = (torch.stack(ray_counts).sum(0).tolist()
+                        if ray_counts else [0] * coll.size)
     total_rays = rays_resumed + sum(rays_per_dev)
     return img, {
         "spp": spp, "seconds": dt, "pixels": w * h, "rays": total_rays,
@@ -743,24 +773,25 @@ def render_wavefront(scene, spp: int | None = None, seed: int = 0,
     accumulation so far).
     """
     device = resolve_device(device)
-    sd, spp = prepare(scene, spp, device)
-    w, h = scene.camera.output_size
-    mode = getattr(scene.integrator, "mode", MIS)
-    max_depth = getattr(scene.integrator, "max_depth", MAX_DEPTH)
-    merged = merged_step(scene, mode, merged)
+    with spans.span("image"):
+        sd, spp = prepare(scene, spp, device)
+        w, h = scene.camera.output_size
+        mode = getattr(scene.integrator, "mode", MIS)
+        max_depth = getattr(scene.integrator, "max_depth", MAX_DEPTH)
+        merged = merged_step(scene, mode, merged)
 
-    total_q = w * h * spp
-    n_lanes = min(n_lanes, max(4096, total_q))
-    if chunk is None:
-        # the record log costs 16 B per work item: 2^25 items = 512 MB
-        chunk = min(total_q, max(64 * n_lanes, 1 << 25))
-    chunk = max(spp, (chunk // spp) * spp)
-    steppers = wavefront_stages(scene, mode, n_lanes, chunk, max_depth,
-                                sort_rays, device, merged)
-    img, stats = render_chunks(
-        scene, sd, spp, seed, steppers, chunk, device,
-        check_every=check_every, checkpoint_path=checkpoint_path,
-        max_chunks=max_chunks, preview_path=preview_path, on_chunk=on_chunk,
-        verbose=verbose)
+        total_q = w * h * spp
+        n_lanes = min(n_lanes, max(4096, total_q))
+        if chunk is None:
+            # the record log costs 16 B per work item: 2^25 items = 512 MB
+            chunk = min(total_q, max(64 * n_lanes, 1 << 25))
+        chunk = max(spp, (chunk // spp) * spp)
+        steppers = wavefront_stages(scene, mode, n_lanes, chunk, max_depth,
+                                    sort_rays, device, merged)
+        img, stats = render_chunks(
+            scene, sd, spp, seed, steppers, chunk, device,
+            check_every=check_every, checkpoint_path=checkpoint_path,
+            max_chunks=max_chunks, preview_path=preview_path,
+            on_chunk=on_chunk, verbose=verbose)
     stats.update(merged=merged, device=str(device))
     return img, stats
