@@ -10,6 +10,14 @@ and `>>` on the CPU, so the arithmetic runs in int64 holding values in
 below 2^62, so no step overflows int64 and every result equals the
 uint32 one bit for bit.  Arguments may be Python ints or integer
 tensors holding uint32 values.
+
+Python ints stay on the host: the hash folds them with the same masked
+arithmetic on Python ints, and becomes a tensor only where it meets a
+tensor argument, on that tensor's device.  A constant, a seed or a
+stream id therefore costs no copy to the device: such a copy, from
+pageable host memory, waits for the card (a stream sync), so a step
+that made one could neither run ahead of the card nor be captured as
+a CUDA graph.
 """
 
 from __future__ import annotations
@@ -19,16 +27,18 @@ import torch
 _M32 = 0xFFFFFFFF
 
 
-def _u32(x, like: torch.Tensor | None = None) -> torch.Tensor:
+def _u32(x):
+    """x as a uint32 value: a Python int stays one, masked; a tensor
+    becomes int64 holding uint32 values."""
     if isinstance(x, torch.Tensor):
         return x.to(torch.int64) & _M32
-    dev = like.device if like is not None else None
-    return torch.tensor(int(x) & _M32, dtype=torch.int64, device=dev)
+    return int(x) & _M32
 
 
-def _pcg(x: torch.Tensor) -> torch.Tensor:
+def _pcg(x):
     """PCG output hash (Jarzynski & Olano, "Hash Functions for GPU
-    Rendering", JCGT 2020) on int64 tensors holding uint32 values."""
+    Rendering", JCGT 2020) on a uint32 value: an int64 tensor holding
+    uint32 values, or a Python int."""
     state = (x * 747796405 + 2891336453) & _M32
     word = (((state >> ((state >> 28) + 4)) ^ state) * 277803737) & _M32
     return (word >> 22) ^ word
@@ -36,12 +46,15 @@ def _pcg(x: torch.Tensor) -> torch.Tensor:
 
 def hash_combine(*ints) -> torch.Tensor:
     """Chain the PCG hash over the inputs; returns int64 tensors
-    holding the uint32 hash."""
-    like = next((v for v in ints if isinstance(v, torch.Tensor)), None)
-    acc = _u32(0x9E3779B9, like)
+    holding the uint32 hash, on the device of the tensor arguments (a
+    0-d tensor on the default device where every input is an int)."""
+    acc = 0x9E3779B9
     for v in ints:
-        acc = _pcg((acc + _u32(v, like)) & _M32)
-    return _pcg(acc)
+        acc = _pcg((acc + _u32(v)) & _M32)
+    acc = _pcg(acc)
+    if not isinstance(acc, torch.Tensor):
+        acc = torch.tensor(acc, dtype=torch.int64)
+    return acc
 
 
 def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -60,8 +73,7 @@ def uniform2(seed, lane, stream) -> torch.Tensor:
     Stream ids are offset into a reserved range so a `uniform(s)` call
     never collides with a `uniform2(s')` call for small ids (< 2**16).
     """
-    like = lane if isinstance(lane, torch.Tensor) else None
-    s = _u32(stream, like)
+    s = _u32(stream)
     u1 = uniform(seed, lane, (s + 0x10000) & _M32)
     u2 = uniform(seed, lane, (s + 0x20000) & _M32)
     return torch.stack([u1, u2], dim=-1)

@@ -42,7 +42,8 @@ from nori_tpu_torch.integrators.path import MIS
 from nori_tpu_torch.render import (
     Solo, _PendingCount, make_batch_pass, prepare, render_batches)
 from nori_tpu_torch.wavefront import (
-    CHECK_EVERY, MAX_DEPTH, merged_step, render_chunks, wavefront_stages)
+    CHECK_EVERY, MAX_DEPTH, merged_step, release_graphs, render_chunks,
+    wavefront_stages)
 
 #: default per-rank lane pool: the JAX package's value, kept for parity
 #: of the two drivers' step counts; not measured on the H100 (ROADMAP P3)
@@ -326,6 +327,9 @@ def render_sharded_wavefront(scene, group=None, spp: int | None = None,
     done.  max_iters bounds the occupancy windows of one chunk.
 
     Returns ((H, W, 3) numpy image, stats), the same image on every rank.
+    Each rank captures its own CUDA graphs (wavefront._GraphedStep;
+    the collectives stay between the steps) and releases them when the
+    render returns.
     """
     device = resolve_device(device)
     coll = collectives(group, device)
@@ -343,10 +347,13 @@ def render_sharded_wavefront(scene, group=None, spp: int | None = None,
         steppers, _ = make_sharded_wavefront(scene, mode, group, n_lanes_dev,
                                              chunk_dev, max_depth,
                                              device=device)
-        return render_chunks(
-            scene, sd, spp, seed, steppers, chunk_dev, device, coll,
-            check_every, max_iters * check_every, checkpoint_path,
-            f":ndev={n_dev}", verbose=verbose)
+        try:
+            return render_chunks(
+                scene, sd, spp, seed, steppers, chunk_dev, device, coll,
+                check_every, max_iters * check_every, checkpoint_path,
+                f":ndev={n_dev}", verbose=verbose)
+        finally:
+            release_graphs(steppers)
 
 
 def render_sharded(scene, group=None, spp: int | None = None, seed: int = 0,

@@ -29,7 +29,19 @@ Work item ids are uint32 in the JAX package; here they are int64
 tensors holding uint32 values, masked where a uint32 would wrap.  The
 state carried between steps is a dict of tensors; `step` returns a new
 one and writes the chunk's record log in place (the JAX package
-donates it).  Nothing in a step reads a device value on the host.
+donates it).  Nothing in a step reads a device value on the host or
+copies a host value to the device, so the host runs ahead of the card
+(the random streams fold their Python-int seeds and stream ids on the
+host, core/rng.py).
+
+CUDA graphs: on a CUDA device with the sweep backend (graph_replay), a
+stage's step is captured once as a CUDA graph over a static carry and
+replayed (_GraphedStep): run_chunk's window of CHECK_EVERY steps is
+then CHECK_EVERY graph launches, the same kernels in the same order,
+so the samples are the eager step's bit for bit.  The first step of
+each stage in each chunk runs eagerly (it warms the stage, and primes
+a merged chunk).  A render captures its own graphs and releases them
+when it returns (release_graphs).
 """
 
 from __future__ import annotations
@@ -45,7 +57,7 @@ import torch
 
 from nori_tpu_torch import config, spans
 from nori_tpu_torch.bitmap import write_png
-from nori_tpu_torch.accel.sweep import lane_keys, pack_rays
+from nori_tpu_torch.accel.sweep import lane_keys, launch_counters, pack_rays
 from nori_tpu_torch.accel.traverse import (
     intersect, intersect_mixed, sweep_hit_epilogue)
 from nori_tpu_torch.bsdf import E_DISCRETE
@@ -163,10 +175,141 @@ def merged_step(scene, mode: int, merged: bool | None = None) -> bool:
         scene.compile_arrays()["tri_packed"].shape[0] != 16
 
 
+def graph_replay(device) -> bool:
+    """Does a stepper on `device` replay its step as a CUDA graph?  On a
+    CUDA device with the sweep backend; the CPU has no graphs, and the
+    "scan" and "bvh" backends step eagerly (intersect_bvh reads on the
+    host whether a ray still walks)."""
+    return device.type == "cuda" and config.resolve_accel() == "pallas"
+
+
+class _Graph:
+    """fn's work on `device`, captured once as a CUDA graph: fn runs
+    during capture and launches nothing; each replay() runs its work
+    again, on the same memory, on the device's current stream."""
+
+    def __init__(self, fn, device):
+        self.device = device
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(device):
+            with torch.cuda.graph(self.graph,
+                                  stream=torch.cuda.Stream(device),
+                                  capture_error_mode="thread_local"):
+                fn()
+
+    def replay(self):
+        with torch.cuda.device(self.device):
+            self.graph.replay()
+
+    def reset(self):
+        self.graph.reset()
+
+
+def _carry_into(dst, src):
+    """Write carry src into carry dst in place, tensor by tensor; a
+    tensor that already is dst's (the record log, q0, q_hi) is left."""
+    if dst[0].keys() != src[0].keys():
+        raise ValueError(f"carry keys {sorted(src[0])} differ from the "
+                         f"static carry's {sorted(dst[0])}")
+    pairs = [(dst[0][k], src[0][k]) for k in dst[0]] + list(zip(dst[1:],
+                                                               src[1:]))
+    for a, b in pairs:
+        if not torch.is_tensor(a):
+            if a != b:
+                raise ValueError(f"host value {b!r} differs from the "
+                                 f"static carry's {a!r}")
+        elif a.data_ptr() != b.data_ptr() or a.stride() != b.stride():
+            a.copy_(b)
+
+
+class _GraphedStep:
+    """A stage's step(sd, carry, seed), replayed as a CUDA graph.
+
+    On a carry that is not the stage's static carry (one from init or
+    from a shrink), the step runs eagerly and its result is written into
+    the static carry, which it becomes the first time.  On the static
+    carry, the first call captures one step that reads the static carry
+    and ends in copies of the new carry into it (capture runs nothing),
+    and every call replays that graph: one replay advances the pool by
+    one step in place, and returns the static carry.  A new sd or seed
+    captures again.  The wrappers of accel.sweep count no launch in a
+    replay, so each replay adds to their counters what capture added.
+    """
+
+    def __init__(self, step, device):
+        self._step, self._device = step, device
+        self._graph = None
+        self.release()
+
+    def __call__(self, sd, carry, seed):
+        if carry is not self._static:
+            out = self._step(sd, carry, seed)
+            if self._static is None:
+                self._static = out
+            else:
+                _carry_into(self._static, out)
+            return self._static
+        if self._graph is None or sd is not self._sd or seed != self._seed:
+            self._capture(sd, seed)
+        self._graph.replay()
+        for f, n in self._gain:
+            f.launches += n
+        spans.count("steps.graphed")
+        return self._static
+
+    def _capture(self, sd, seed):
+        self._reset_graph()
+        static = self._static
+        counters = list(launch_counters().values())
+        before = [f.launches for f in counters]
+
+        def one_step():
+            _carry_into(static, self._step(sd, static, seed))
+
+        with spans.span("capture"):
+            self._graph = _Graph(one_step, self._device)
+        self._gain = [(f, f.launches - n) for f, n in zip(counters, before)
+                      if f.launches != n]
+        for f, n in zip(counters, before):
+            f.launches = n
+        self._sd, self._seed = sd, seed
+
+    def record_log(self, rows: int):
+        """The record log of the static carry, (rows, 4) int32, which
+        every chunk's init refills (a graph writes the log it was
+        captured on)."""
+        if self._log is None:
+            self._log = torch.empty((rows, 4), dtype=torch.int32,
+                                    device=self._device)
+        return self._log
+
+    def _reset_graph(self):
+        if self._graph is not None:
+            self._graph.reset()
+        self._graph = None
+
+    def release(self):
+        """Reset the graph and drop the static carry and record log."""
+        self._reset_graph()
+        self._static = self._log = self._sd = self._seed = None
+        self._gain = []
+
+
+def release_graphs(steppers):
+    """Release the CUDA graphs of run_chunk's steppers (init, stages,
+    finalize) and hand their memory pools back to the card."""
+    graphed = [s for s, _, _ in steppers[1] if isinstance(s, _GraphedStep)]
+    for s in graphed:
+        s.release()
+    if graphed:
+        torch.cuda.empty_cache()
+
+
 def make_wavefront_stepper(scene, mode: int, n_lanes: int, chunk: int,
                            max_depth: int = MAX_DEPTH,
                            sort_rays: bool | None = None,
-                           device=None, merged: bool | None = None):
+                           device=None, merged: bool | None = None,
+                           graph: bool | None = None):
     """Build (init, step, n_active, finalize) for one pool width, on
     `device` (default: the first CUDA device; device.resolve_device).
 
@@ -178,9 +321,12 @@ def make_wavefront_stepper(scene, mode: int, n_lanes: int, chunk: int,
     every stage of its shrink cascade, since a shrunk carry inherits
     the wide stage's state.  The merged state also carries the next
     rays' hits (hit_t, hit_tri) and `primed`, a host-side bool: whether
-    they were traced yet.
+    they were traced yet.  graph: replay the step as a CUDA graph
+    (_GraphedStep; None reads graph_replay).
     """
     device = resolve_device(device)
+    if graph is None:
+        graph = graph_replay(device)
     cam = scene.camera
     w, h = cam.output_size
     spp = scene.sampler.sample_count
@@ -230,15 +376,18 @@ def make_wavefront_stepper(scene, mode: int, n_lanes: int, chunk: int,
                                           device=device)
             state["primed"] = False
         # q column = sentinel bits (int32 -1 == uint32 0xFFFFFFFF)
-        records = torch.zeros((chunk + N, 4), dtype=torch.int32,
-                              device=device)
+        if graph:
+            records = step.record_log(chunk + N).zero_()
+        else:
+            records = torch.zeros((chunk + N, 4), dtype=torch.int32,
+                                  device=device)
         records[:, 0] = -1
         records = records.view(torch.float32)
         zero = torch.zeros((), dtype=torch.int64, device=device)
         return (state, torch.tensor(q0 + N, device=device), records,
                 zero.clone(), zero.clone(), q_hi)
 
-    def step(sd, carry, seed):
+    def eager_step(sd, carry, seed):
         st, next_q, records, w_cur, rays, q_hi = carry
         q, active, depth = st["q"], st["active"], st["depth"]
         q0 = st["q0"]
@@ -389,6 +538,7 @@ def make_wavefront_stepper(scene, mode: int, n_lanes: int, chunk: int,
         ordr = torch.argsort(qs, stable=True)
         return records[:chunk, 1:4][ordr]
 
+    step = _GraphedStep(eager_step, device) if graph else eager_step
     return init, step, n_active, finalize
 
 
@@ -419,7 +569,8 @@ def run_chunk(steppers, sd, seed, q0: int, q_end: int,
               check_every: int = CHECK_EVERY, count=_PendingCount,
               max_steps: int = 100000):
     """Drive one chunk to completion; returns (L_out, rays tensor,
-    (steps, wide steps, lane steps)).
+    (steps, wide steps, lane steps)).  Both tensors are the chunk's own:
+    a graphed stage's static carry is overwritten by the next chunk.
 
     steppers = (init, stages, finalize); stages lists (step, n_active,
     shrink_to_next) from widest to narrowest.  The host reads the
@@ -463,7 +614,7 @@ def run_chunk(steppers, sd, seed, q0: int, q_end: int,
             raise RuntimeError("run_chunk did not drain")
         with spans.span("finalize"):
             L_out = finalize(carry[2], q0)
-    return L_out, carry[4], (it, wide_it, lane_steps)
+    return L_out, carry[4].clone(), (it, wide_it, lane_steps)
 
 
 def make_dense_splat(scene, chunk: int, device=None):
@@ -770,7 +921,8 @@ def render_wavefront(scene, spp: int | None = None, seed: int = 0,
 
     Returns ((H, W, 3) numpy image, stats); stats["done"] says whether
     every chunk has been rendered (with max_chunks, the image is the
-    accumulation so far).
+    accumulation so far).  The render's CUDA graphs are released when it
+    returns.
     """
     device = resolve_device(device)
     with spans.span("image"):
@@ -788,10 +940,13 @@ def render_wavefront(scene, spp: int | None = None, seed: int = 0,
         chunk = max(spp, (chunk // spp) * spp)
         steppers = wavefront_stages(scene, mode, n_lanes, chunk, max_depth,
                                     sort_rays, device, merged)
-        img, stats = render_chunks(
-            scene, sd, spp, seed, steppers, chunk, device,
-            check_every=check_every, checkpoint_path=checkpoint_path,
-            max_chunks=max_chunks, preview_path=preview_path,
-            on_chunk=on_chunk, verbose=verbose)
+        try:
+            img, stats = render_chunks(
+                scene, sd, spp, seed, steppers, chunk, device,
+                check_every=check_every, checkpoint_path=checkpoint_path,
+                max_chunks=max_chunks, preview_path=preview_path,
+                on_chunk=on_chunk, verbose=verbose)
+        finally:
+            release_graphs(steppers)
     stats.update(merged=merged, device=str(device))
     return img, stats

@@ -14,6 +14,7 @@ inputs.  The renders' own shapes are captured from the render paths:
 from __future__ import annotations
 
 import contextlib
+import inspect
 
 #: steps a 524,288-lane pool takes before its rays count as steady (the
 #: lanes then hold paths of mixed depths, sorted by their K3 keys)
@@ -94,8 +95,12 @@ def room_inputs(cs, dev):
     n = cfg["n_lanes"]
     spp = scene.sampler.sample_count
     w, h = scene.camera.output_size
+    # the step's K1 and K3 calls are recorded from an eager step: a
+    # graphed step's replay calls neither wrapper
+    eager = ({"graph": False} if "graph" in inspect.signature(
+        make_wavefront_stepper).parameters else {})
     init, step, _, _ = make_wavefront_stepper(
-        scene, MIS, n, 8 * n // spp * spp, device=dev)
+        scene, MIS, n, 8 * n // spp * spp, device=dev, **eager)
     carry = init(cs.SEED, 0, w * h * spp)
     for _ in range(WARM_STEPS):
         carry = step(sd, carry, cs.SEED)

@@ -20,6 +20,11 @@ import pytest  # noqa: E402
 REF_SCENES = "/root/reference/scenes"
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; skipped without one")
+
+
 @pytest.fixture(scope="session")
 def ref_scenes():
     if not os.path.isdir(REF_SCENES):
