@@ -8,9 +8,12 @@ streamed-scale scenes (16-row operands, STREAM_T-triangle slab bounds,
 as `Scene.compile_arrays` lays them out), the streamed sweep (K5, or
 K5-cull with config.STREAM_CULL_T on the Moller-Trumbore operand).  A
 streamed scene's shadow query first sorts its rays by their own
-candidate slabs (K3).  `intersect_mixed` runs both queries in one
-mixed launch (K4) for the wavefront's merged step.  The switches in
-`nori_tpu_torch.config` are read at every query.
+candidate slabs (K3).  With spans on (nori_tpu_torch.spans), each
+streamed sweep is a span `sweep.stream` and adds 1 to the counter
+`sweeps.streamed`, and the shadow presort is a span `step.shadow_sort`.
+`intersect_mixed` runs both queries in one mixed launch (K4) for the
+wavefront's merged step.  The switches in `nori_tpu_torch.config` are
+read at every query.
 
 config.accel_mode selects the backend (config.resolve_accel): the
 sweeps above ("pallas"), or one of the JAX package's two other
@@ -29,7 +32,7 @@ from typing import NamedTuple
 
 import torch
 
-from nori_tpu_torch import config
+from nori_tpu_torch import config, spans
 from nori_tpu_torch.accel.bvh import LEAF_SIZE
 from nori_tpu_torch.accel.sweep import (
     TILE_N, cull_sub_blocks, lane_keys, pack_rays, ray_tile_entry_keys,
@@ -220,11 +223,15 @@ def _sweep(sd, rays, any_hit: bool):
     use_bw = op == "bw"
     if streamed(sd):
         cull_t = config.STREAM_CULL_T
-        if not use_bw and cull_sub_blocks(cull_t) > 1:
-            return stream_sweep_culled(sd.tri_packed, keys, idx_bits, rays,
-                                       any_hit=any_hit, cull_t=cull_t)
-        return stream_sweep(sd.tri_bw if use_bw else sd.tri_packed, keys,
-                            idx_bits, rays, any_hit=any_hit, use_bw=use_bw)
+        spans.count("sweeps.streamed")
+        with spans.span("sweep.stream"):
+            if not use_bw and cull_sub_blocks(cull_t) > 1:
+                return stream_sweep_culled(sd.tri_packed, keys, idx_bits,
+                                           rays, any_hit=any_hit,
+                                           cull_t=cull_t)
+            return stream_sweep(sd.tri_bw if use_bw else sd.tri_packed,
+                                keys, idx_bits, rays, any_hit=any_hit,
+                                use_bw=use_bw)
     if op == "mxu":
         return resident_sweep_mxu(sd.tri_mxu, keys, idx_bits, rays,
                                   any_hit=any_hit)
@@ -335,8 +342,10 @@ def occluded(sd, o, d, mint, maxt) -> torch.Tensor:
     if not streamed(sd):
         _, idx = _sweep(sd, rays, True)
         return idx[:n] >= 0
-    perm = shadow_order(sd, rays)
-    _, idx = _sweep(sd, rays[:, perm].contiguous(), True)
+    with spans.span("step.shadow_sort"):
+        perm = shadow_order(sd, rays)
+        rays = rays[:, perm].contiguous()
+    _, idx = _sweep(sd, rays, True)
     hit = torch.empty_like(idx, dtype=torch.bool)
     hit[perm] = idx >= 0
     return hit[:n]

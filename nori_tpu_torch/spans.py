@@ -134,6 +134,11 @@ def count(name: str, n: int = 1) -> None:
     _REC.count(name, n)
 
 
+def counters() -> dict:
+    """A copy of the counters recorded since the last take, which stay."""
+    return dict(_REC.counters)
+
+
 def enable() -> None:
     _REC.on = True
 

@@ -233,7 +233,9 @@ class _GraphedStep:
     and every call replays that graph: one replay advances the pool by
     one step in place, and returns the static carry.  A new sd or seed
     captures again.  The wrappers of accel.sweep count no launch in a
-    replay, so each replay adds to their counters what capture added.
+    replay, nor does the step count anything in spans' counters (such as
+    `sweeps.streamed`), so each replay adds to both what capture added,
+    which capture itself takes back (it runs nothing).
     """
 
     def __init__(self, step, device):
@@ -254,6 +256,8 @@ class _GraphedStep:
         self._graph.replay()
         for f, n in self._gain:
             f.launches += n
+        for name, n in self._counted:
+            spans.count(name, n)
         spans.count("steps.graphed")
         return self._static
 
@@ -262,6 +266,7 @@ class _GraphedStep:
         static = self._static
         counters = list(launch_counters().values())
         before = [f.launches for f in counters]
+        counted = spans.counters()
 
         def one_step():
             _carry_into(static, self._step(sd, static, seed))
@@ -272,6 +277,11 @@ class _GraphedStep:
                       if f.launches != n]
         for f, n in zip(counters, before):
             f.launches = n
+        self._counted = [(k, n - counted.get(k, 0))
+                         for k, n in spans.counters().items()
+                         if n != counted.get(k, 0)]
+        for name, n in self._counted:
+            spans.count(name, -n)
         self._sd, self._seed = sd, seed
 
     def record_log(self, rows: int):
@@ -292,7 +302,7 @@ class _GraphedStep:
         """Reset the graph and drop the static carry and record log."""
         self._reset_graph()
         self._static = self._log = self._sd = self._seed = None
-        self._gain = []
+        self._gain, self._counted = [], []
 
 
 def release_graphs(steppers):

@@ -9,8 +9,12 @@ that every chunk refills, and the eager first steps through the chunk
 loop; nothing here is a CUDA graph.  On a card, the tests marked `card`
 replay real graphs and also hold the kernels' launch counts to the
 eager render's, and check that a step of each benchmark cell's scene
-makes no synchronising call.  tests/conftest.py imports JAX, which the
-card's machine lacks, and this file does not need it:
+makes no synchronising call.  The streamed layout (the benchmark's
+cbox_scan: the Cornell box with a 541,660-triangle stand-in) runs K5 and
+the shadow query's K3 presort inside the captured step; on the CPU its
+tiny version takes that layout under a lowered bound.  tests/conftest.py
+imports JAX, which the card's machine lacks, and this file does not
+need it:
 
     python -m pytest tests/test_torch_graph.py --noconftest -q -m card
 """
@@ -19,11 +23,16 @@ import pytest
 import torch
 
 from nori_tpu_torch import config, spans
+from nori_tpu_torch import scene as scene_mod
 from nori_tpu_torch import scenes_builtin as scenes
 from nori_tpu_torch import wavefront as wf
 from nori_tpu_torch.accel.sweep import launch_counters
 from nori_tpu_torch.integrators.path import MIS
 from nori_tpu_torch.render import prepare
+
+
+#: soups over 512 padded triangles take the streamed layout
+SMALL_BOUND = 9 * 512 * 4
 
 
 class _ReplayFn:
@@ -74,6 +83,17 @@ def _room(w=16, h=16, spp=2, detail=1):
     return scenes.living_room(w, h, spp, detail=detail)
 
 
+def _cbox_scan(w, h, spp, **over):
+    """The benchmark's cbox_scan configuration as a port scene."""
+    from benchmark import manifest as mf
+    from benchmark.port import build_scene
+
+    man = mf.load()
+    desc = mf.scene_builder("cbox_scan")(
+        {**mf.config(man, "cbox_scan"), "width": w, "height": h, **over})
+    return build_scene(desc, "path_mis", spp)
+
+
 def _eager_entries(records) -> int:
     """Steps that begin a stage in a chunk: the first `step` span after
     a `chunk` span opens or a `shrink` span closes."""
@@ -114,6 +134,7 @@ def _render(monkeypatch, graphed: bool, device, make, **kw) -> dict:
     return dict(img=img, st=st, counters=rec["counters"],
                 entries=_eager_entries(rec["records"]),
                 captures=sum(r.name == "capture" for r in rec["records"]),
+                shrinks=sum(r.name == "shrink" for r in rec["records"]),
                 launches={k: f.launches
                           for k, f in launch_counters().items()})
 
@@ -129,6 +150,9 @@ def _same(monkeypatch, device, make, **kw):
     assert "steps.graphed" not in a["counters"] and a["captures"] == 0
     assert b["entries"] >= 1 and b["captures"] >= 1
     assert b["counters"]["steps.graphed"] == b["st"]["steps"] - b["entries"]
+    # a step's own counters: on a card a replay adds what capture counted
+    assert b["counters"].get("sweeps.streamed") == \
+        a["counters"].get("sweeps.streamed")
     return a, b
 
 
@@ -152,6 +176,59 @@ def test_replayed_equals_eager_cpu(monkeypatch, name):
     if "chunk" in kw:
         assert b["entries"] >= 512 // kw["chunk"]
     assert a["img"].mean() > 0.0
+
+
+def test_streamed_replayed_equals_eager_cpu(monkeypatch):
+    """A tiny cbox_scan on the streamed layout: replayed equals eager,
+    and `sweeps.streamed` counts a closest and a shadow sweep a step
+    both ways."""
+    monkeypatch.setattr(scene_mod, "STREAMED_BYTES", SMALL_BOUND)
+
+    def make():
+        return _cbox_scan(24, 18, 2, n_lat=24, n_lon=20)
+
+    assert make().compile_arrays()["tri_packed"].shape[0] == 16
+    a, b = _same(monkeypatch, torch.device("cpu"), make, seed=5,
+                 n_lanes=4096, sort_rays=True)
+    assert b["counters"]["steps.graphed"] > 0
+    assert a["counters"]["sweeps.streamed"] == \
+        b["counters"]["sweeps.streamed"] == 2 * a["st"]["steps"]
+    assert a["img"].mean() > 0.0
+
+
+class _CaptureRunsFn:
+    """wavefront._Graph's Python side: capture runs fn once (its host
+    code, counters included), a replay runs no Python."""
+
+    def __init__(self, fn, device):
+        fn()
+
+    def replay(self):
+        pass
+
+    def reset(self):
+        pass
+
+
+def test_replay_adds_what_capture_counted(monkeypatch):
+    """A step's spans counters: an eager step counts them, capture
+    takes back what it counted, and each replay adds it."""
+    monkeypatch.setattr(wf, "_Graph", _CaptureRunsFn)
+
+    def step(sd, carry, seed):
+        spans.count("sweeps.streamed", 2)
+        return ({"x": carry[0]["x"] + 1},)
+
+    graphed = wf._GraphedStep(step, torch.device("cpu"))
+    spans.enable()
+    carry = graphed(None, ({"x": torch.zeros(())},), 1)   # eager
+    assert spans.counters()["sweeps.streamed"] == 2
+    for k in range(3):                                      # capture, replays
+        assert graphed(None, carry, 1) is carry
+        assert spans.counters()["sweeps.streamed"] == 4 + 2 * k
+    assert spans.counters()["steps.graphed"] == 3
+    graphed(None, carry, 2)                                 # a new seed
+    assert spans.counters()["sweeps.streamed"] == 10
 
 
 def _resumed(monkeypatch, device, make, path, **kw):
@@ -203,6 +280,13 @@ CARD_CASES = {
                     dict(merged=True)),
     "cbox_chunks": (lambda: _cbox(128, 128, 4),
                     dict(n_lanes=8192, chunk=16384)),
+    # the streamed layout at its full 541,674 triangles: K5 and the K3
+    # shadow presort in the captured step, through the full cascade.
+    # Past depth 3 its paths die fast (roulette on a throughput that the
+    # dark bust and the open front keep low): read every 8 or even 4
+    # steps, one stale count takes both shrinks at once
+    "cbox_scan_cascade": (lambda: _cbox_scan(128, 128, 16),
+                          dict(n_lanes=65536, check_every=2)),
 }
 
 
@@ -212,7 +296,8 @@ def test_replayed_equals_eager_on_card(monkeypatch, card, name):
     make, kw = CARD_CASES[name]
     a, b = _same(monkeypatch, card, make, seed=2**31 + 11, **kw)
     assert b["launches"] == a["launches"] and sum(a["launches"].values())
-    if name == "cbox_cascade":
+    if name.endswith("_cascade"):
+        assert b["shrinks"] == 2
         assert b["entries"] == b["captures"] == 3
 
 
@@ -225,10 +310,17 @@ def test_checkpoint_resumed_replayed_equals_eager_on_card(monkeypatch,
 
 
 CELL_SCENES = {
-    # the benchmark's wavefront cells: scene at spp, lanes
+    # the benchmark's wavefront cells: scene at spp, lanes, and the widths
+    # of the cascade that the warm image steps at
     "living_room.path_mis": (lambda spp: scenes.living_room(
-        1280, 720, spp, detail=5), 524288),
-    "cbox.path_mis": (lambda spp: scenes.cornell_box(800, 600, spp), 131072),
+        1280, 720, spp, detail=5), 524288, 3),
+    "cbox.path_mis": (lambda spp: scenes.cornell_box(800, 600, spp), 131072,
+                      3),
+    # 480,000 items fill the pool once and its paths die fast: the read
+    # after the first window qualifies for both shrinks, so no step runs
+    # at 65,536 lanes
+    "cbox_scan.path_mis": (lambda spp: _cbox_scan(800, 600, spp), 524288,
+                           2),
 }
 
 
@@ -238,7 +330,7 @@ CELL_SCENES = {
 def test_cell_step_makes_no_sync(card, cell, merged):
     """Steady-state eager steps of the cell's scene under
     torch.cuda.set_sync_debug_mode("error"): no synchronising call."""
-    make, n = CELL_SCENES[cell]
+    make, n, _ = CELL_SCENES[cell]
     scene = make(32)
     sd, spp = prepare(scene, None, card)
     w, h = scene.camera.output_size
@@ -258,8 +350,10 @@ def test_cell_step_makes_no_sync(card, cell, merged):
 @pytest.mark.card
 @pytest.mark.parametrize("cell", sorted(CELL_SCENES))
 def test_cell_captures_every_width(monkeypatch, card, cell):
-    """The cell's warm image (1 spp at its lanes) captures a graph at
-    each of the cascade's three widths and equals the eager image."""
-    make, n = CELL_SCENES[cell]
+    """The cell's warm image (1 spp at its lanes) drains through the
+    cascade to its narrowest width, captures a graph at each width it
+    steps at, and equals the eager image."""
+    make, n, widths = CELL_SCENES[cell]
     a, b = _same(monkeypatch, card, lambda: make(1), seed=3, n_lanes=n)
-    assert b["entries"] == b["captures"] == 3
+    assert b["shrinks"] == 2
+    assert b["entries"] == b["captures"] == widths

@@ -342,3 +342,101 @@ def test_streamed_wavefront_matches_jax(small_bound, monkeypatch, name):
     assert float(np.mean(diff.max(axis=-1) > 1e-3)) < 0.01
     assert float(diff.max()) < 5e-3
     assert ref.mean() > 0.05
+
+
+def _plugin_scene(pkg: str, desc, integrator: str, spp: int):
+    """A scene description (benchmark/scenegen.py) as `pkg`'s scene,
+    built through its plugin API as benchmark/port.py builds the port's:
+    meshes as MeshData with their BSDF and emitter, the perspective
+    camera with its filter, the sampler and the integrator."""
+    import importlib
+
+    def mod(name):
+        return importlib.import_module(f"{pkg}.{name}")
+
+    PropertyList = mod("props").PropertyList
+    create = mod("registry").create_instance
+
+    def props(values):
+        pl = PropertyList()
+        for key, v in values.items():
+            if isinstance(v, int):
+                pl.set_integer(key, v)
+            elif isinstance(v, float):
+                pl.set_float(key, v)
+            else:
+                pl.set_color(key, np.asarray(v, np.float64))
+        return pl
+
+    scene = mod("scene").Scene(PropertyList())
+    for m in desc.meshes:
+        mesh = mod("mesh").Mesh()
+        mesh.data = mod("obj_loader").MeshData(
+            positions=np.asarray(m.positions, np.float32),
+            normals=(None if m.normals is None
+                     else np.asarray(m.normals, np.float32)),
+            texcoords=None, faces=np.asarray(m.faces, np.uint32),
+            name=m.name)
+        mesh.add_child(create(m.bsdf["type"], props(
+            {k: v for k, v in m.bsdf.items() if k != "type"})))
+        if m.emitter is not None:
+            mesh.add_child(create("area", props(
+                {"radiance": list(m.emitter)})))
+        mesh.activate()
+        scene.add_child(mesh)
+    c = desc.camera
+    cam_pl = props({"width": c.width, "height": c.height,
+                    "fov": float(c.fov), "nearClip": float(c.near),
+                    "farClip": float(c.far)})
+    cam_pl.set_transform("toWorld", mod("core.transform").Transform.lookat(
+        c.origin, c.target, c.up))
+    cam = create("perspective", cam_pl)
+    cam.add_child(create(desc.rfilter["type"], props(
+        {k: float(v) for k, v in desc.rfilter.items() if k != "type"})))
+    cam.activate()
+    scene.add_child(cam)
+    scene.add_child(create("independent", props({"sampleCount": spp})))
+    scene.add_child(create(integrator, PropertyList()))
+    scene.activate()
+    return scene
+
+
+def test_streamed_cbox_scan_matches_jax(monkeypatch):
+    """The benchmark's cbox_scan (the Cornell box with the ajax
+    stand-in in place of its spheres) at a tiny size, both packages'
+    streamed bounds lowered to 512 padded triangles: the port's
+    streamed wavefront against the JAX package's, each scene built
+    through its package's plugin API."""
+    from benchmark import manifest as mf
+
+    bound = 9 * 512 * 4
+    monkeypatch.setattr(pallas_mt, "RESIDENT_VMEM_BUDGET", bound)
+    monkeypatch.setattr(torch_scene_mod, "STREAMED_BYTES", bound)
+    monkeypatch.setattr(config, "MERGED_SWEEP", False)
+    monkeypatch.setattr(torch_config, "USE_BW_SWEEP", False)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        man = mf.load()
+        desc = mf.scene_builder("cbox_scan")(
+            {**mf.config(man, "cbox_scan"), "width": 24, "height": 18,
+             "n_lat": 24, "n_lon": 20})
+        ref, ref_st = jax_wf.render_wavefront(
+            _plugin_scene("nori_tpu", desc, "path_mis", 2), seed=0,
+            n_lanes=4096)
+        scene = _plugin_scene("nori_tpu_torch", desc, "path_mis", 2)
+        arrays = scene.compile_arrays()
+        assert arrays["tri_packed"].shape[0] == 16
+        assert arrays["tri_tile_bounds"].shape[0] == 2
+        img, st = torch_wf.render_wavefront(scene, seed=0, n_lanes=4096,
+                                            device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert st["rays"] == ref_st["rays"]
+    assert st["steps"] == ref_st["steps"]
+    assert img.shape == ref.shape == (18, 24, 3) and np.isfinite(img).all()
+    diff = np.abs(img - ref)
+    assert float(np.sqrt(np.mean((img - ref) ** 2))) < 1e-3
+    assert float(np.mean(diff.max(axis=-1) > 1e-3)) < 0.01
+    assert float(diff.max()) < 5e-3
+    assert ref.mean() > 0.05
