@@ -134,7 +134,8 @@ nvidia-smi reports them, and {"ok": true, "device": {...}}.
     python3 chip_smoke.py --profile
 
 builds the kernels and prints only a torch.profiler breakdown of one
-131,072-sample whitted batch of the ajax_rough render.
+131,072-sample whitted batch of the ajax_rough render, on the batch
+driver's graphed pass.
 """
 
 from __future__ import annotations
@@ -2418,32 +2419,40 @@ def _kernel_group(name: str) -> str:
 
 def profile_whitted_batch(dev, batch_index: int = 36) -> dict:
     """torch.profiler breakdown of one steady 131,072-sample batch of
-    the ajax_rough render (the batch driver with whitted), batch
-    `batch_index` of 72 (the middle of the image, on the bust); the
-    wall time is the median of five unprofiled runs of the same batch."""
+    the ajax_rough render on the batch driver's graphed pass (whitted;
+    render.make_batch_pass, which replays a batch's stages as CUDA
+    graphs on the card), batch `batch_index` of 72 (the middle of the
+    image, on the bust).  The batches before it run in order, as a
+    render runs them: the first eagerly, the rest replayed; the wall
+    time is the median of the five batches before the profiled one,
+    each timed to its end on the card."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from nori_tpu_torch.render import DEFAULT_BATCH, make_sample_pass_q
+    from nori_tpu_torch.render import DEFAULT_BATCH, make_batch_pass
 
     scene = ajax_scene(AJAX_SIZE, AJAX_SIZE, 16, "whitted")
     sd = scene.compile(dev)
-    pass_fn = make_sample_pass_q(scene, DEFAULT_BATCH, dev)
-    q0 = batch_index * DEFAULT_BATCH
-    for _ in range(3):
-        pass_fn(sd, SEED, q0)
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(5):
+    new_film, pass_fn, _ = make_batch_pass(scene, DEFAULT_BATCH, dev)
+    film = new_film()
+
+    def one_batch(b):
         t0 = time.time()
-        _, rays = pass_fn(sd, SEED, q0)
+        _, rays = pass_fn(sd, film, SEED, b * DEFAULT_BATCH)
         torch.cuda.synchronize()
-        walls.append(time.time() - t0)
+        return time.time() - t0, rays
+
+    for b in range(batch_index - 5):
+        one_batch(b)
+    walls = [one_batch(b)[0] for b in range(batch_index - 5, batch_index)]
     wall_ms = sorted(walls)[2] * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pass_fn(sd, SEED, q0)
-        torch.cuda.synchronize()
+        _, rays = one_batch(batch_index)
+    # the image's last batch releases the pass's graphs
+    for b in range(batch_index + 1, -(-AJAX_SIZE * AJAX_SIZE * 16
+                                      // DEFAULT_BATCH)):
+        one_batch(b)
     groups, top = {}, []
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
@@ -2458,7 +2467,7 @@ def profile_whitted_batch(dev, batch_index: int = 36) -> dict:
     if busy <= 0.0:
         raise AssertionError("torch.profiler recorded no device time")
     log(f"whitted batch {batch_index}: {DEFAULT_BATCH} samples, "
-        f"{int(rays)} rays; wall {wall_ms:.3f} ms (median of 5, no "
+        f"{int(rays[0])} rays; wall {wall_ms:.3f} ms (median of 5, no "
         f"profiler); device busy {busy:.3f} ms, share "
         f"{busy / wall_ms:.3f}; {sum(g[1] for g in groups.values())} "
         "device operations")
@@ -2467,7 +2476,7 @@ def profile_whitted_batch(dev, batch_index: int = 36) -> dict:
             f"{ms / busy:.3f} of busy")
     for ms, n, key in sorted(top, reverse=True)[:12]:
         log(f"    {ms:9.3f} ms {n:5d}x {key}")
-    return dict(wall_ms=wall_ms, busy_ms=busy, rays=int(rays),
+    return dict(wall_ms=wall_ms, busy_ms=busy, rays=int(rays[0]),
                 groups={k: dict(ms=v[0], ops=v[1]) for k, v in groups.items()})
 
 

@@ -1,13 +1,17 @@
 """Integrators (reference: include/nori/integrator.h:34-61).
 
-Each integrator plugin exposes `make_li(scene)` returning a function
+Each integrator plugin exposes `make_depth(scene, device)`, its
+estimate as a depth loop over the whole batch (base.DepthLoop: init,
+one depth's body, max_depth), and through it `make_li(scene, device)`
+returning a function
 
     li(scene_data, o, d, mint, maxt, seed, lanes) -> ((N, 3), aux)
 
 over a batch of N rays, with aux["rays"] the rays it traced.  `lanes`
 are global sample ids feeding the counter-based RNG.  The reference's
-recursive per-ray `Li(scene, sampler, ray)` becomes a depth loop over
-the whole batch.
+recursive per-ray `Li(scene, sampler, ray)` becomes that depth loop
+(base.run_depths); the graphed batch driver (render.py) replays its
+depths one by one.
 
 Plugins: normals, simple, ao, whitted, path_mats, path_ems, path_mis,
 path.  The path family renders through the persistent wavefront, the

@@ -3,9 +3,9 @@
 Port of `nori_tpu/integrators/path.py`.  `path_vertex` is one bounce
 of the estimator.  Two drivers step it: the persistent wavefront
 (nori_tpu_torch.wavefront), through which `render_to_files` renders the
-path family, and `make_li`'s batched depth loop, which `render.render`
-drives as the JAX package's `render` does.  `mode` selects the
-estimator:
+path family, and the batched depth loop (make_path_depth), which
+`render.render` drives as the JAX package's `render` does.  `mode`
+selects the estimator:
   * path_mats — BSDF sampling only; emitter contributions on hit.
   * path_ems  — next-event estimation at every solid-angle vertex;
     emitter hits counted only after discrete bounces / primary rays.
@@ -20,14 +20,13 @@ from __future__ import annotations
 
 import torch
 
-from nori_tpu_torch import spans
 from nori_tpu_torch.accel.traverse import intersect, occluded
 from nori_tpu_torch.bsdf import E_DISCRETE, eval_bsdf, pdf_bsdf, sample_bsdf
 from nori_tpu_torch.core.vecmath import (
     EPSILON, dot, make_frame, to_local, to_world)
 from nori_tpu_torch.integrators.base import (
-    Integrator, lane_uniform, lane_uniform2, mesh_params,
-    sample_emitter_point_fast, shadow_ray_args)
+    DepthLoop, Integrator, lane_uniform, lane_uniform2, mesh_params,
+    path_state, sample_emitter_point_fast, shadow_ray_args)
 from nori_tpu_torch.interaction import fill_interaction_fast
 from nori_tpu_torch.registry import register_class
 
@@ -141,42 +140,39 @@ def path_vertex(sd, mode: int, o, d, mint, maxt, live, depth, beta, L,
     return its, frame, s, L, beta, alive, n_shadow, deferred
 
 
-def make_path_li(mode: int, max_depth: int = MAX_DEPTH):
+def _path_init(o, d, mint, maxt) -> dict:
+    """path_state, and the previous bounce of primary rays: discrete
+    (spec), of density 0."""
+    n, dev = o.shape[0], o.device
+    return {**path_state(o, d, mint, maxt),
+            "spec": torch.ones((n,), dtype=torch.bool, device=dev),
+            "prev_pdf": torch.zeros((n,), dtype=torch.float32, device=dev)}
+
+
+def make_path_depth(mode: int, max_depth: int = MAX_DEPTH) -> DepthLoop:
     """Batched path tracer over N camera rays (path.py:42-188): one
     path_vertex for the whole batch per depth until no lane is alive
-    (read on the host once per depth) or max_depth."""
+    (run_depths reads it on the host before each depth past the first)
+    or max_depth."""
 
-    def li(sd, o, d, mint, maxt, seed, lanes):
-        n, dev = o.shape[0], o.device
-        L = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-        beta = torch.ones((n, 3), dtype=torch.float32, device=dev)
-        alive = torch.ones((n,), dtype=torch.bool, device=dev)
-        spec = torch.ones((n,), dtype=torch.bool, device=dev)
-        prev_pdf = torch.zeros((n,), dtype=torch.float32, device=dev)
-        rays = torch.zeros((), dtype=torch.int64, device=dev)
-        for depth in range(max_depth):
-            with spans.span("batch.depth"):
-                with spans.sync("alive"):
-                    go = bool(alive.any())
-                if not go:
-                    break
-                rays = rays + alive.sum()
-                its, frame, s, L, beta, alive, n_shadow, _ = path_vertex(
-                    sd, mode, o, d, mint, maxt, alive,
-                    torch.full((n,), depth, dtype=torch.int32, device=dev),
-                    beta, L, spec, prev_pdf, seed, lanes)
-                rays = rays + n_shadow
-                spec = s.measure == E_DISCRETE
-                prev_pdf = s.pdf
-                o = its.p
-                d = to_world(frame, s.wo)
-                mint = torch.full((n,), EPSILON, dtype=torch.float32,
-                                  device=dev)
-                maxt = torch.full((n,), 1e30, dtype=torch.float32,
-                                  device=dev)
-        return L, {"rays": rays}
+    def body(sd, st, depth: int, seed, lanes) -> dict:
+        o, n, dev = st["o"], st["o"].shape[0], st["o"].device
+        alive = st["alive"]
+        rays = st["rays"] + alive.sum()
+        its, frame, s, L, beta, alive, n_shadow, _ = path_vertex(
+            sd, mode, o, st["d"], st["mint"], st["maxt"], alive,
+            torch.full((n,), depth, dtype=torch.int32, device=dev),
+            st["beta"], st["L"], st["spec"], st["prev_pdf"], seed, lanes)
+        return {"o": its.p, "d": to_world(frame, s.wo),
+                "mint": torch.full((n,), EPSILON, dtype=torch.float32,
+                                   device=dev),
+                "maxt": torch.full((n,), 1e30, dtype=torch.float32,
+                                   device=dev),
+                "L": L, "beta": beta, "alive": alive,
+                "spec": s.measure == E_DISCRETE, "prev_pdf": s.pdf,
+                "rays": rays + n_shadow}
 
-    return li
+    return DepthLoop(body, max_depth, _path_init)
 
 
 class _PathBase(Integrator):
@@ -185,8 +181,8 @@ class _PathBase(Integrator):
     def __init__(self, props):
         self.max_depth = props.get_integer("maxDepth", MAX_DEPTH)
 
-    def make_li(self, scene):
-        return make_path_li(self.mode, self.max_depth)
+    def make_depth(self, scene, device):
+        return make_path_depth(self.mode, self.max_depth)
 
     def to_string(self):
         return f"{type(self).__name__}[maxDepth={self.max_depth}]"

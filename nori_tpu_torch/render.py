@@ -17,10 +17,11 @@ import time
 
 import torch
 
-from nori_tpu_torch import spans
+from nori_tpu_torch import graphs, spans
 from nori_tpu_torch.core import rng
 from nori_tpu_torch.device import resolve_device  # noqa: F401 (re-export)
 from nori_tpu_torch.film import FilmSpec, splat
+from nori_tpu_torch.integrators.base import call_stage, run_depths
 
 #: RNG stream of the pixel jitter, shared by camera rays and the splat
 JITTER_STREAM = 0xF000
@@ -54,7 +55,7 @@ def make_sample_pass(scene, spec: FilmSpec, batch: int, device=None):
     n_pixels = w * h
     spp = scene.sampler.sample_count
     cam_params = cam.ray_params(device)
-    li = scene.integrator.make_li(scene)
+    li = scene.integrator.make_li(scene, device)
 
     def sample_pass(sd, accum, seed, sample_idx: int, pix0: int):
         pix = pix0 + torch.arange(batch, dtype=torch.int64, device=device)
@@ -72,6 +73,54 @@ def make_sample_pass(scene, spec: FilmSpec, batch: int, device=None):
     return sample_pass
 
 
+class _BatchStages:
+    """make_sample_pass_q's pass over `batch` work items q = q0 +
+    arange(batch) as stages over one carry: a dict of the integrator's
+    depth-loop state (integrators.base.DepthLoop) and "q0", the first
+    work item, a Python int or a 0-d int64 tensor on the device (the
+    graphed batch driver's)."""
+
+    def __init__(self, scene, batch: int, device):
+        w, h = scene.camera.output_size
+        self.scene, self.batch, self.device = scene, batch, device
+        self.spp = scene.sampler.sample_count
+        self.n_pixels = w * h
+        self.total_q = w * h * self.spp
+        self.cam_params = scene.camera.ray_params(device)
+        self.loop = scene.integrator.make_depth(scene, device)
+
+    def lanes(self, q0):
+        return q0 + torch.arange(self.batch, dtype=torch.int64,
+                                 device=self.device)
+
+    def depth(self, sd, carry: dict, k: int, seed) -> dict:
+        """Depth k of the batch; depth 0 starts from the camera rays of
+        its work items (pixels past the image clamped to the last) and
+        the loop's init.  Returns the next carry."""
+        q0 = carry["q0"]
+        q = self.lanes(q0)
+        if k == 0:
+            pix = torch.clamp_max(q // self.spp, self.n_pixels - 1)
+            _, o, d, mint, maxt = camera_rays(self.scene, self.cam_params,
+                                              pix, q, seed)
+            state = self.loop.init(o, d, mint, maxt)
+        else:
+            state = {n: v for n, v in carry.items() if n != "q0"}
+        return {"q0": q0, **self.loop.body(sd, state, k, seed, q)}
+
+    def trace(self, sd, carry: dict, seed, run=call_stage) -> dict:
+        """The batch's depths from a carry holding q0 (run_depths; run
+        replays a depth in the graphed driver)."""
+        return run_depths(lambda c, k: self.depth(sd, c, k, seed), carry,
+                          self.loop.max_depth, run)
+
+    def values(self, carry: dict) -> torch.Tensor:
+        """The batch's radiance (batch, 3), zero past the last work
+        item."""
+        in_range = self.lanes(carry["q0"]) < self.total_q
+        return torch.where(in_range[:, None], carry["L"], 0.0)
+
+
 def make_sample_pass_q(scene, batch: int, device=None):
     """Pass over `batch` work items q = pixel * spp + sample, on `device`
     (default: the first CUDA device; resolve_device).
@@ -81,20 +130,11 @@ def make_sample_pass_q(scene, batch: int, device=None):
     pixel * spp + sample_idx, so the two batchings give the same sample
     values."""
     device = resolve_device(device)
-    cam = scene.camera
-    w, h = cam.output_size
-    spp = scene.sampler.sample_count
-    cam_params = cam.ray_params(device)
-    li = scene.integrator.make_li(scene)
-    n_pixels = w * h
+    stages = _BatchStages(scene, batch, device)
 
     def pass_fn(sd, seed, q0: int):
-        q = q0 + torch.arange(batch, dtype=torch.int64, device=device)
-        in_range = q < n_pixels * spp
-        pix = torch.clamp_max(q // spp, n_pixels - 1)
-        _, o, d, mint, maxt = camera_rays(scene, cam_params, pix, q, seed)
-        vals, aux = li(sd, o, d, mint, maxt, seed, q)
-        return torch.where(in_range[:, None], vals, 0.0), aux["rays"]
+        carry = stages.trace(sd, {"q0": q0}, seed)
+        return stages.values(carry), carry["rays"]
 
     return pass_fn
 
@@ -153,6 +193,81 @@ def prepare(scene, spp: int | None, device):
     return sd, scene.sampler.sample_count
 
 
+class _GraphedBatch:
+    """make_batch_pass's pass_fn(sd, film, seed, q0) -> (film, rays (1,))
+    on one device with no group, its stages replayed as CUDA graphs over
+    one static carry (graphs.StaticCarry; on a card with the sweep
+    backend, graphs.graph_replay).
+
+    The carry's q0 is a 0-d int64 on the device, which the splat stage
+    advances by the batch, so no stage reads a host value that changes
+    from batch to batch.  A call whose q0 is not the one the static
+    carry holds (the first batch of a render), or with another sd, seed
+    or film, drops the graphs and runs the stages eagerly from q0 filled
+    on the device; its carry is written into the static carry, which it
+    becomes the first time.  On the static carry each stage replays its
+    graph, captured the first time a batch reaches it: depth 0 (the
+    camera rays, the integrator's init and its first depth), then each
+    depth k while the host reads a live lane between graphs (`sync.alive`,
+    as the eager loop reads it), then the splat.  Same work, same
+    samples, same order as the eager pass.  A replay counts what its
+    stage counts eagerly (graphs.Capture); the counter `batches.graphed`
+    counts the batches that replays served.  The rays returned are a
+    clone: the next replay overwrites the static carry.  The image's
+    last batch releases the graphs and the carry (release).
+    """
+
+    def __init__(self, stages: _BatchStages, splat_chunk, device):
+        self._stages, self._splat, self._device = stages, splat_chunk, device
+        self._static = graphs.StaticCarry(device)
+        self._next = None
+
+    def __call__(self, sd, film, seed, q0: int):
+        stages, static = self._stages, self._static
+        nxt = self._next
+        replay = (nxt is not None and nxt[0] is sd and nxt[1] is film
+                  and nxt[2] == seed and nxt[3] == q0)
+        if replay:
+            carry = static.carry
+
+            def run(key, fn, c):
+                return static.replay(key, fn)
+        else:
+            static.drop_graphs()
+            carry = {"q0": torch.full((), q0, dtype=torch.int64,
+                                      device=self._device)}
+            run = call_stage
+
+        def splat(c):
+            self._splat(film, stages.values(c), seed, c["q0"],
+                        stages.total_q)
+            return {**c, "q0": c["q0"] + stages.batch}
+
+        with spans.span("batch"):
+            carry = stages.trace(sd, carry, seed, run)
+            with spans.span("splat"):
+                carry = run("splat", splat, carry)
+        if replay:
+            spans.count("batches.graphed")
+        else:
+            static.keep(carry)
+        rays = static.carry["rays"].reshape(1).clone()
+        self._next = (sd, film, seed, q0 + stages.batch)
+        if q0 + stages.batch >= stages.total_q:
+            self.release()
+        return film, rays
+
+    def release(self):
+        """Drop the graphs and the static carry once the work they
+        launched has run.  The graphs' memory pools go back to the card
+        at the next torch.cuda.empty_cache() (`render` calls it after the
+        image), or when the allocator runs short."""
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+        self._static.release()
+        self._next = None
+
+
 def make_batch_pass(scene, batch: int, device=None, coll=Solo):
     """Pass adding one batch of `batch` work items q to the dense film on
     `device` (default: the first CUDA device; resolve_device), the batch
@@ -163,6 +278,10 @@ def make_batch_pass(scene, batch: int, device=None, coll=Solo):
 
     Returns (new_film, pass_fn, finalize); pass_fn(sd, film, seed, q0)
     -> (film, rays (coll.size,) per rank); film is None on other ranks.
+    With no group (Solo) on a device that replays CUDA graphs
+    (graphs.graph_replay), pass_fn is a _GraphedBatch; a group's pass
+    runs eagerly, since a collective lies between its trace and its
+    splat.
     """
     from nori_tpu_torch.wavefront import make_dense_splat
 
@@ -171,9 +290,12 @@ def make_batch_pass(scene, batch: int, device=None, coll=Solo):
     total_q = math.prod(scene.camera.output_size) * \
         scene.sampler.sample_count
     with spans.span("build"):
-        trace = make_sample_pass_q(scene, share, device)
         new_film, splat_chunk, finalize = make_dense_splat(scene, batch,
                                                            device)
+        if coll is Solo and graphs.graph_replay(device):
+            return new_film, _GraphedBatch(_BatchStages(scene, batch, device),
+                                           splat_chunk, device), finalize
+        trace = make_sample_pass_q(scene, share, device)
 
     def pass_fn(sd, film, seed, q0: int):
         with spans.span("batch"):
@@ -184,7 +306,8 @@ def make_batch_pass(scene, batch: int, device=None, coll=Solo):
             if parts is not None:
                 with spans.span("splat"):
                     vals = parts[0] if len(parts) == 1 else torch.cat(parts)
-                    film = splat_chunk(film, vals, seed, q0, total_q)
+                    film = splat_chunk(film, vals, seed, torch.full(
+                        (), q0, dtype=torch.int64, device=device), total_q)
         return film, rays
 
     return new_film, pass_fn, finalize
@@ -243,8 +366,14 @@ def render(scene, spp: int | None = None, seed: int = 0,
     device = resolve_device(device)
     with spans.span("image"):
         sd, spp = prepare(scene, spp, device)
-        return render_batches(scene, sd, spp, seed, batch, device,
-                              verbose=verbose)
+        out = render_batches(scene, sd, spp, seed, batch, device,
+                             verbose=verbose)
+        del sd
+        if graphs.graph_replay(device):
+            # the pools of the graphs that the pass released after its
+            # last batch, and all the image cached, go back to the card
+            torch.cuda.empty_cache()
+    return out
 
 
 def render_to_files(scene, out_base: str, spp: int | None = None,

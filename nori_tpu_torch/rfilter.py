@@ -33,9 +33,11 @@ class GaussianFilter(ReconstructionFilter):
 
     def eval(self, x):
         alpha = -1.0 / (2.0 * self.stddev * self.stddev)
-        # the window term is taken in float32, as the JAX package does
-        tail = torch.exp(torch.tensor(alpha * self.radius * self.radius,
-                                      dtype=torch.float32, device=x.device))
+        # the window term is taken in float32, as the JAX package does;
+        # a fill on x's device, not a copy from the host, which would wait
+        # for the card (and break a CUDA graph's capture)
+        tail = torch.exp(torch.full((), alpha * self.radius * self.radius,
+                                    dtype=torch.float32, device=x.device))
         return torch.clamp_min(torch.exp(alpha * x * x) - tail, 0.0)
 
     def to_string(self):

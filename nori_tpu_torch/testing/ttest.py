@@ -62,7 +62,7 @@ def scene_mean(scene, n: int, batches: int, seed: int, device):
     sd = scene.compile(device)
     scene.integrator.preprocess(scene)
     cam = scene.camera
-    li = scene.integrator.make_li(scene)
+    li = scene.integrator.make_li(scene, device)
     cam_params = cam.ray_params(device)
     size = torch.tensor([cam.width, cam.height], dtype=torch.float32,
                         device=device)

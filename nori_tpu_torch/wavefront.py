@@ -34,14 +34,14 @@ copies a host value to the device, so the host runs ahead of the card
 (the random streams fold their Python-int seeds and stream ids on the
 host, core/rng.py).
 
-CUDA graphs: on a CUDA device with the sweep backend (graph_replay), a
-stage's step is captured once as a CUDA graph over a static carry and
-replayed (_GraphedStep): run_chunk's window of CHECK_EVERY steps is
-then CHECK_EVERY graph launches, the same kernels in the same order,
-so the samples are the eager step's bit for bit.  The first step of
-each stage in each chunk runs eagerly (it warms the stage, and primes
-a merged chunk).  A render captures its own graphs and releases them
-when it returns (release_graphs).
+CUDA graphs: on a CUDA device with the sweep backend
+(graphs.graph_replay), a stage's step is captured once as a CUDA graph
+over a static carry and replayed (_GraphedStep): run_chunk's window of
+CHECK_EVERY steps is then CHECK_EVERY graph launches, the same kernels
+in the same order, so the samples are the eager step's bit for bit.
+The first step of each stage in each chunk runs eagerly (it warms the
+stage, and primes a merged chunk).  A render captures its own graphs
+and releases them when it returns (release_graphs).
 """
 
 from __future__ import annotations
@@ -55,9 +55,9 @@ import zipfile
 import numpy as np
 import torch
 
-from nori_tpu_torch import config, spans
+from nori_tpu_torch import config, graphs, spans
 from nori_tpu_torch.bitmap import write_png
-from nori_tpu_torch.accel.sweep import lane_keys, launch_counters, pack_rays
+from nori_tpu_torch.accel.sweep import lane_keys, pack_rays
 from nori_tpu_torch.accel.traverse import (
     intersect, intersect_mixed, sweep_hit_epilogue)
 from nori_tpu_torch.bsdf import E_DISCRETE
@@ -175,53 +175,6 @@ def merged_step(scene, mode: int, merged: bool | None = None) -> bool:
         scene.compile_arrays()["tri_packed"].shape[0] != 16
 
 
-def graph_replay(device) -> bool:
-    """Does a stepper on `device` replay its step as a CUDA graph?  On a
-    CUDA device with the sweep backend; the CPU has no graphs, and the
-    "scan" and "bvh" backends step eagerly (intersect_bvh reads on the
-    host whether a ray still walks)."""
-    return device.type == "cuda" and config.resolve_accel() == "pallas"
-
-
-class _Graph:
-    """fn's work on `device`, captured once as a CUDA graph: fn runs
-    during capture and launches nothing; each replay() runs its work
-    again, on the same memory, on the device's current stream."""
-
-    def __init__(self, fn, device):
-        self.device = device
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(device):
-            with torch.cuda.graph(self.graph,
-                                  stream=torch.cuda.Stream(device),
-                                  capture_error_mode="thread_local"):
-                fn()
-
-    def replay(self):
-        with torch.cuda.device(self.device):
-            self.graph.replay()
-
-    def reset(self):
-        self.graph.reset()
-
-
-def _carry_into(dst, src):
-    """Write carry src into carry dst in place, tensor by tensor; a
-    tensor that already is dst's (the record log, q0, q_hi) is left."""
-    if dst[0].keys() != src[0].keys():
-        raise ValueError(f"carry keys {sorted(src[0])} differ from the "
-                         f"static carry's {sorted(dst[0])}")
-    pairs = [(dst[0][k], src[0][k]) for k in dst[0]] + list(zip(dst[1:],
-                                                               src[1:]))
-    for a, b in pairs:
-        if not torch.is_tensor(a):
-            if a != b:
-                raise ValueError(f"host value {b!r} differs from the "
-                                 f"static carry's {a!r}")
-        elif a.data_ptr() != b.data_ptr() or a.stride() != b.stride():
-            a.copy_(b)
-
-
 class _GraphedStep:
     """A stage's step(sd, carry, seed), replayed as a CUDA graph.
 
@@ -232,57 +185,25 @@ class _GraphedStep:
     and ends in copies of the new carry into it (capture runs nothing),
     and every call replays that graph: one replay advances the pool by
     one step in place, and returns the static carry.  A new sd or seed
-    captures again.  The wrappers of accel.sweep count no launch in a
-    replay, nor does the step count anything in spans' counters (such as
-    `sweeps.streamed`), so each replay adds to both what capture added,
-    which capture itself takes back (it runs nothing).
+    captures again.  A replay counts the launches and spans' counters of
+    one step (graphs.StaticCarry).
     """
 
     def __init__(self, step, device):
         self._step, self._device = step, device
-        self._graph = None
+        self._static = graphs.StaticCarry(device)
         self.release()
 
     def __call__(self, sd, carry, seed):
-        if carry is not self._static:
-            out = self._step(sd, carry, seed)
-            if self._static is None:
-                self._static = out
-            else:
-                _carry_into(self._static, out)
-            return self._static
-        if self._graph is None or sd is not self._sd or seed != self._seed:
-            self._capture(sd, seed)
-        self._graph.replay()
-        for f, n in self._gain:
-            f.launches += n
-        for name, n in self._counted:
-            spans.count(name, n)
-        spans.count("steps.graphed")
-        return self._static
-
-    def _capture(self, sd, seed):
-        self._reset_graph()
         static = self._static
-        counters = list(launch_counters().values())
-        before = [f.launches for f in counters]
-        counted = spans.counters()
-
-        def one_step():
-            _carry_into(static, self._step(sd, static, seed))
-
-        with spans.span("capture"):
-            self._graph = _Graph(one_step, self._device)
-        self._gain = [(f, f.launches - n) for f, n in zip(counters, before)
-                      if f.launches != n]
-        for f, n in zip(counters, before):
-            f.launches = n
-        self._counted = [(k, n - counted.get(k, 0))
-                         for k, n in spans.counters().items()
-                         if n != counted.get(k, 0)]
-        for name, n in self._counted:
-            spans.count(name, -n)
-        self._sd, self._seed = sd, seed
+        if carry is not static.carry:
+            return static.keep(self._step(sd, carry, seed))
+        if sd is not self._sd or seed != self._seed:
+            static.drop_graphs()
+            self._sd, self._seed = sd, seed
+        out = static.replay("step", lambda c: self._step(sd, c, seed))
+        spans.count("steps.graphed")
+        return out
 
     def record_log(self, rows: int):
         """The record log of the static carry, (rows, 4) int32, which
@@ -293,16 +214,10 @@ class _GraphedStep:
                                     device=self._device)
         return self._log
 
-    def _reset_graph(self):
-        if self._graph is not None:
-            self._graph.reset()
-        self._graph = None
-
     def release(self):
         """Reset the graph and drop the static carry and record log."""
-        self._reset_graph()
-        self._static = self._log = self._sd = self._seed = None
-        self._gain, self._counted = [], []
+        self._static.release()
+        self._log = self._sd = self._seed = None
 
 
 def release_graphs(steppers):
@@ -332,11 +247,11 @@ def make_wavefront_stepper(scene, mode: int, n_lanes: int, chunk: int,
     the wide stage's state.  The merged state also carries the next
     rays' hits (hit_t, hit_tri) and `primed`, a host-side bool: whether
     they were traced yet.  graph: replay the step as a CUDA graph
-    (_GraphedStep; None reads graph_replay).
+    (_GraphedStep; None reads graphs.graph_replay).
     """
     device = resolve_device(device)
     if graph is None:
-        graph = graph_replay(device)
+        graph = graphs.graph_replay(device)
     cam = scene.camera
     w, h = cam.output_size
     spp = scene.sampler.sample_count
@@ -638,12 +553,18 @@ def make_dense_splat(scene, chunk: int, device=None):
     ImageBlock::put (src/block.cpp:81-103): the tap at pixel px+delta
     has filter argument delta - jitter + 0.5, windowed at radius r.
 
-    Returns (new_film, splat_chunk, finalize); splat_chunk adds into the
-    film in place.  A last chunk that runs past the image adds only the
-    rows that lie in the film: the rows past its end hold work items
-    past the last, of weight 0; a chunk that starts past the film's end
-    (a rank's share of the last global chunk, parallel.py) adds nothing.
-    (The JAX package's dynamic_slice clamps such a slice's start
+    Returns (new_film, splat_chunk, finalize); splat_chunk(film, L_out,
+    seed, q0, q_end) adds into the film in place, q0 being the chunk's
+    first work item as a 0-d int64 tensor on the device, which the host
+    does not read (the graphed batch driver advances it on the device).
+    Each tap adds its row sums with index_add_ at the chunk's pixels,
+    which are distinct rows, so each film element gets one add a tap,
+    in tap order, as a slice add would give.  The chunk's pixels past
+    the image hold work items past the last, of weight 0 (a ragged last
+    chunk, or a rank's share of the last global chunk that starts past
+    the film, parallel.py): they fold onto the first pixel past the
+    image, so that every tap's rows lie in the film, and add zeros
+    there.  (The JAX package's dynamic_slice clamps such a slice's start
     instead, which moves the chunk's samples once the overrun exceeds
     the margin.)
     """
@@ -665,14 +586,15 @@ def make_dense_splat(scene, chunk: int, device=None):
         return torch.zeros((w * h + 2 * margin, 4), dtype=torch.float32,
                            device=device)
 
-    def splat_chunk(film, L_out, seed, q0: int, q_end: int):
+    def splat_chunk(film, L_out, seed, q0, q_end: int):
         q = q0 + torch.arange(chunk, dtype=torch.int64, device=device)
         in_range = q < q_end
         jitter = rng.uniform2(seed, q, JITTER_STREAM)
         jx, jy = jitter[:, 0], jitter[:, 1]
         rgba = torch.cat([L_out, in_range.to(torch.float32)[:, None]], dim=-1)
         x = (q // spp) % w
-        p0 = q0 // spp
+        pix = torch.clamp_max(q0 // spp + torch.arange(
+            npix, dtype=torch.int64, device=device), w * h)
         wx, wy = [], []
         for dv in deltas:
             ax = dv - jx + 0.5
@@ -685,9 +607,8 @@ def make_dense_splat(scene, chunk: int, device=None):
                 okx = (x + dx >= 0) & (x + dx < w)
                 wgt = torch.where(okx & in_range, wgt, 0.0)
                 contrib = (rgba * wgt[:, None]).reshape(npix, spp, 4)
-                start = p0 + dy * w + dx + margin
-                rows = max(0, min(npix, film.shape[0] - start))
-                film[start:start + rows] += torch.sum(contrib[:rows], dim=1)
+                film[dy * w + dx + margin:].index_add_(
+                    0, pix, torch.sum(contrib, dim=1))
         return film
 
     def finalize(film):
@@ -849,8 +770,9 @@ def render_chunks(scene, sd, spp: int, seed: int, steppers, chunk: int,
             with spans.span("splat"):
                 for r, part in enumerate(parts):
                     if q0 + r * chunk < total_q:
-                        film = splat_chunk(film, part, seed, q0 + r * chunk,
-                                           total_q)
+                        film = splat_chunk(film, part, seed, torch.full(
+                            (), q0 + r * chunk, dtype=torch.int64,
+                            device=device), total_q)
             if checkpoint_path:
                 with spans.sync("rays"):
                     rays_so_far = int(torch.stack(ray_counts).sum())

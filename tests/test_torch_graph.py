@@ -22,7 +22,7 @@ need it:
 import pytest
 import torch
 
-from nori_tpu_torch import config, spans
+from nori_tpu_torch import config, graphs, spans
 from nori_tpu_torch import scene as scene_mod
 from nori_tpu_torch import scenes_builtin as scenes
 from nori_tpu_torch import wavefront as wf
@@ -36,7 +36,7 @@ SMALL_BOUND = 9 * 512 * 4
 
 
 class _ReplayFn:
-    """wavefront._Graph on the CPU: capture records fn, replay runs it."""
+    """graphs.Graph on the CPU: capture records fn, replay runs it."""
 
     def __init__(self, fn, device):
         self.fn = fn
@@ -119,10 +119,10 @@ def _render(monkeypatch, graphed: bool, device, make, **kw) -> dict:
     the eager stage entries, the captures and the launch counts."""
     with monkeypatch.context() as m:
         if not graphed:
-            m.setattr(wf, "graph_replay", lambda dev: False)
+            m.setattr(graphs, "graph_replay", lambda dev: False)
         elif device.type == "cpu":
-            m.setattr(wf, "graph_replay", lambda dev: True)
-            m.setattr(wf, "_Graph", _ReplayFn)
+            m.setattr(graphs, "graph_replay", lambda dev: True)
+            m.setattr(graphs, "Graph", _ReplayFn)
         for f in launch_counters().values():
             f.launches = 0
         spans.enable()
@@ -197,7 +197,7 @@ def test_streamed_replayed_equals_eager_cpu(monkeypatch):
 
 
 class _CaptureRunsFn:
-    """wavefront._Graph's Python side: capture runs fn once (its host
+    """graphs.Graph's Python side: capture runs fn once (its host
     code, counters included), a replay runs no Python."""
 
     def __init__(self, fn, device):
@@ -213,7 +213,7 @@ class _CaptureRunsFn:
 def test_replay_adds_what_capture_counted(monkeypatch):
     """A step's spans counters: an eager step counts them, capture
     takes back what it counted, and each replay adds it."""
-    monkeypatch.setattr(wf, "_Graph", _CaptureRunsFn)
+    monkeypatch.setattr(graphs, "Graph", _CaptureRunsFn)
 
     def step(sd, carry, seed):
         spans.count("sweeps.streamed", 2)
@@ -252,11 +252,34 @@ def test_checkpoint_resumed_replayed_equals_eager_cpu(monkeypatch,
              sort_rays=True, chunk=128)
 
 
+@pytest.mark.parametrize("form", ["dict", "tuple"])
+def test_carry_into_writes_in_place(form):
+    """graphs.carry_into copies each tensor of a carry into the static
+    carry's, leaves a tensor the two share, and refuses other keys or
+    another host value."""
+    shared = torch.zeros(2)
+
+    def carry(x, primed=True):
+        state = {"x": x, "primed": primed}
+        return state if form == "dict" else (state, shared)
+
+    static = carry(torch.zeros(3))
+    x = static["x"] if form == "dict" else static[0]["x"]
+    graphs.carry_into(static, carry(torch.arange(3.0)))
+    assert torch.equal(x, torch.arange(3.0))
+    assert (static if form == "dict" else static[0])["x"] is x
+    with pytest.raises(ValueError):
+        graphs.carry_into(static, carry(torch.ones(3), primed=False))
+    bad = {"y": torch.ones(3), "primed": True}
+    with pytest.raises(ValueError):
+        graphs.carry_into(static, bad if form == "dict" else (bad, shared))
+
+
 def test_graph_replay_decides_by_device_and_backend(monkeypatch):
-    assert not wf.graph_replay(torch.device("cpu"))
+    assert not graphs.graph_replay(torch.device("cpu"))
     for mode, want in (("pallas", True), ("scan", False), ("bvh", False)):
         monkeypatch.setattr(config, "accel_mode", mode)
-        assert wf.graph_replay(torch.device("cuda")) is want
+        assert graphs.graph_replay(torch.device("cuda")) is want
 
 
 def test_cpu_stepper_is_eager():

@@ -286,8 +286,8 @@ def test_splat_chunk_past_the_film():
     last global chunk) leaves the film unchanged."""
     scene = torch_scenes.cornell_box(48, 32, 2)
     new_film, splat_chunk, _ = torch_wf.make_dense_splat(scene, RAGGED, "cpu")
-    film = splat_chunk(new_film(), torch.ones((RAGGED, 3)), 0, 3456,
-                       TOTAL_Q)
+    film = splat_chunk(new_film(), torch.ones((RAGGED, 3)), 0,
+                       torch.tensor(3456), TOTAL_Q)
     assert torch.equal(film, new_film())
 
 
