@@ -24,21 +24,14 @@ from nori_tpu_torch import scenes_builtin as torch_scenes
 from nori_tpu_torch.accel import traverse
 from nori_tpu_torch.scene import HOST_ONLY, SceneData, scene_bvh
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 SCENES = {
     "cornell_box": lambda m: m.cornell_box(32, 24, 4, sphere_subdiv=1),
     "living_room": lambda m: m.living_room(32, 24, 1, detail=1),
 }
 N_RAYS = 2048
 RTOL_T = 1e-6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The tensors here are small: more intra-op threads only spin."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rays(bbox_min, bbox_max, seed=0):

@@ -27,6 +27,8 @@ from nori_tpu_torch.core import transform as ttransform
 from nori_tpu_torch import bsdf as tbsdf, warp as twarp
 from nori_tpu_torch.scenes_builtin import living_room as torch_living_room
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 def _close(got, ref, what=""):
     got, ref = np.asarray(got), np.asarray(ref)

@@ -6,7 +6,6 @@ scripts on the same seeded inputs (the scripts loaded by path, their
 renders and dumps replaced by seeded images or resumed from seeded
 checkpoints, so nothing here renders at a cost)."""
 
-import contextlib
 import importlib.util
 import json
 import os
@@ -16,7 +15,6 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
 from nori_tpu_torch import bench
 from nori_tpu_torch import scenes_builtin as torch_scenes
@@ -25,6 +23,8 @@ from nori_tpu_torch.scripts import pathgraph_eval as torch_eval
 from nori_tpu_torch.scripts import pg_protocol_report as torch_report
 from nori_tpu_torch.scripts import rmse_gate as torch_gate
 from nori_tpu_torch.wavefront import render_wavefront
+
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -45,18 +45,6 @@ def _script(name: str, where: str = os.path.join(REPO, "scripts")):
     return mod
 
 
-@contextlib.contextmanager
-def _one_thread():
-    """One torch thread: the renders are small, and a thread pool sized
-    to the host's cores slows them on a host shared by test processes."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
-
-
 # ---------------------------------------------------------------------------
 # bench
 # ---------------------------------------------------------------------------
@@ -72,10 +60,9 @@ def test_bench_row_on_the_cpu():
 
     jax_row = _script("bench", REPO)._bench_scene(
         jax_scenes.cornell_box(32, 24, 2, sphere_subdiv=1), 2, n_lanes=1024)
-    with _one_thread():
-        row = bench.bench_scene(
-            torch_scenes.cornell_box(32, 24, 2, sphere_subdiv=1), 2, 1024,
-            "cpu")
+    row = bench.bench_scene(
+        torch_scenes.cornell_box(32, 24, 2, sphere_subdiv=1), 2, 1024,
+        "cpu")
     assert set(BENCH_FIELDS) <= set(row)
     assert row["driver"] == "wavefront" and row["spp"] == 2
     assert row["rays"] > 0 and row["rays_each"] == [row["rays"]] * 2
@@ -115,8 +102,7 @@ def test_bench_budget_skips_later_rows(monkeypatch, capsys):
                         dict(width=16, height=16, spp=1, detail=1))
     monkeypatch.setattr(bench, "ROOM_LANES", 4096)
     monkeypatch.setenv("BENCH_TIME_BUDGET", "1")
-    with _one_thread():
-        assert bench.main(["--device", "cpu"]) == 0
+    assert bench.main(["--device", "cpu"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     records = [json.loads(line) for line in lines]
     assert records[0].get("partial") is True
@@ -205,13 +191,12 @@ def test_reference_ragged_rows_are_those_the_jax_splat_moves():
     kw = dict(n_lanes=1024, seed=3)
     ref, _ = jax_wf.render_wavefront(
         jax_scenes.cornell_box(w, h, spp, sphere_subdiv=1), chunk=chunk, **kw)
-    with _one_thread():
-        ragged, _ = render_wavefront(
-            torch_scenes.cornell_box(w, h, spp, sphere_subdiv=1),
-            chunk=chunk, device="cpu", **kw)
-        uncut, _ = render_wavefront(
-            torch_scenes.cornell_box(w, h, spp, sphere_subdiv=1),
-            chunk=w * h * spp, device="cpu", **kw)
+    ragged, _ = render_wavefront(
+        torch_scenes.cornell_box(w, h, spp, sphere_subdiv=1),
+        chunk=chunk, device="cpu", **kw)
+    uncut, _ = render_wavefront(
+        torch_scenes.cornell_box(w, h, spp, sphere_subdiv=1),
+        chunk=w * h * spp, device="cpu", **kw)
     np.testing.assert_allclose(ragged, uncut, rtol=1e-5, atol=1e-6)
     rows = torch_gate.reference_ragged_rows(w, h, spp, chunk, 2.0)
     moved = np.abs(ref - uncut).max(axis=(1, 2)) > 1e-4

@@ -17,6 +17,8 @@ from nori_tpu_torch import export as torch_export
 from nori_tpu_torch import load_from_xml as torch_load
 from nori_tpu_torch.export import blender as torch_blender
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 def _spec(m):
     """tests/test_export.py's scene from export package m: a textured

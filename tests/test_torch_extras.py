@@ -12,7 +12,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 from nori_tpu import scenes_builtin as jax_scenes
 from nori_tpu import wavefront as jax_wf
@@ -22,21 +21,14 @@ from nori_tpu_torch import bitmap as torch_bitmap
 from nori_tpu_torch import scenes_builtin as torch_scenes
 from nori_tpu_torch import wavefront as torch_wf
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 KEY_SCENES = {
     "cornell_box": lambda m: m.cornell_box(32, 24, spp=4, sphere_subdiv=1),
     "living_room": lambda m: m.living_room(32, 24, 1, detail=1),
 }
 #: 32 x 24 x 4 = 3072 work items in three chunks
 RENDER = dict(n_lanes=1024, chunk=1024, seed=3, device="cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The tensors here are small: more intra-op threads only spin."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cbox():

@@ -30,6 +30,8 @@ from nori_tpu_torch.accel.sweep import launch_counters
 from nori_tpu_torch.integrators.path import MIS
 from nori_tpu_torch.render import prepare
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 #: soups over 512 padded triangles take the streamed layout
 SMALL_BOUND = 9 * 512 * 4
@@ -46,17 +48,6 @@ class _ReplayFn:
 
     def reset(self):
         self.fn = None
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One torch thread: the renders here are small, and on a host
-    shared by many test processes a thread pool sized to the host's
-    cores slows them a hundredfold."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)

@@ -39,6 +39,8 @@ from nori_tpu_torch.props import PropertyList
 from nori_tpu_torch.registry import create_instance
 from nori_tpu_torch.testing import chi2, hypothesis, ttest
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: microfacet of scenes/pa5/tests/ttest-microfacet.xml and its reference
 #: means at five angles (tests/test_bsdf.py)
@@ -46,15 +48,6 @@ MICROFACET = dict(alpha=0.1, intIOR=1.5, extIOR=1.000277,
                   kd=(0.1, 0.2, 0.15))
 ANGLES = [0, 45, 60, 80, 85]
 REFERENCES = [0.207067, 0.215733, 0.247884, 0.430936, 0.519016]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The tensors here are small: more intra-op threads only spin."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _bsdf_pair(kind, **params):

@@ -2,8 +2,11 @@
 SceneData round trip, image output bytes, the CLI (a whitted scene
 rendered to EXR/PNG, other inputs refused), the default device (CUDA,
 never the CPU unasked, also for the path-graph entry points), and the
-jax-free import."""
+jax-free import; and the one torch thread every port test file takes
+(tests/torch_threads.py)."""
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -22,6 +25,8 @@ from nori_tpu_torch import scenes_builtin as torch_scenes
 from nori_tpu_torch import wavefront as torch_wf
 from nori_tpu_torch.integrators.path import MIS
 from nori_tpu_torch.scene import HOST_ONLY, SceneData, scene_data_from_numpy
+
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -300,3 +305,48 @@ def test_import_leaves_jax_out():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert nori_tpu_torch.__name__ == "nori_tpu_torch"
+
+
+def _pins_threads(node) -> bool:
+    """Whether `node` sets torch's thread count or OMP_NUM_THREADS."""
+    omp = "OMP_NUM_THREADS"
+    if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
+        if node.func.attr == "set_num_threads":
+            return True
+        first = node.args[0] if node.args else None
+        return (node.func.attr == "setenv"
+                and isinstance(first, ast.Constant) and first.value == omp)
+    return (isinstance(node, ast.Subscript)
+            and isinstance(node.ctx, ast.Store)
+            and isinstance(node.slice, ast.Constant)
+            and node.slice.value == omp)
+
+
+def test_every_port_test_file_takes_one_thread():
+    """Every tests/test_torch_*.py imports the module-scoped one-thread
+    fixture of tests/torch_threads.py, and none pins torch's threads or
+    OMP_NUM_THREADS itself: the rule is defined once.  The fixture is in
+    force here too."""
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    files = sorted(glob.glob(os.path.join(here, "test_torch_*.py")))
+    assert os.path.abspath(__file__) in files
+    missing, pinning = [], []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        name = os.path.basename(path)
+        if not any(isinstance(node, ast.ImportFrom)
+                   and node.module == "torch_threads"
+                   and any(a.name == "one_torch_thread" and a.asname is None
+                           for a in node.names)
+                   for node in tree.body):
+            missing.append(name)
+        pinning += [f"{name}:{node.lineno}" for node in ast.walk(tree)
+                    if _pins_threads(node)]
+    assert not missing, ("no `from torch_threads import one_torch_thread`: "
+                         f"{missing}")
+    assert not pinning, f"pins threads itself: {pinning}"
+    assert torch.get_num_threads() == 1
+    assert os.environ.get("OMP_NUM_THREADS") == "1"

@@ -35,6 +35,8 @@ from nori_tpu_torch import scenes_builtin as torch_scenes
 from nori_tpu_torch import wavefront as torch_wf
 from nori_tpu_torch.accel import sweep
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 CSRC = os.path.join(os.path.dirname(os.path.abspath(sweep.__file__)), "..",
                     "csrc")
 INF = float("inf")

@@ -39,6 +39,8 @@ from nori_tpu_torch.accel import sweep
 from nori_tpu_torch.accel import traverse as torch_traverse
 from nori_tpu_torch.integrators.path import EMS, MATS, MIS
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 N_CAMERA, N_BOUNCE = 256, 512
 
 

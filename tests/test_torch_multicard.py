@@ -20,6 +20,8 @@ import torch
 
 from nori_tpu_torch.scripts import multicard
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 DRY_CHECKS = {"batch pass film finite", "sharded wavefront finite",
@@ -38,19 +40,7 @@ def _jax_dry_run_rays() -> tuple[int, int]:
     return int(wave.group(1)), int(room.group(1))
 
 
-@pytest.fixture
-def one_thread(monkeypatch):
-    """One torch thread here and in the ranks spawned meanwhile (a
-    spawned rank's torch reads OMP_NUM_THREADS): the renders are small,
-    and the host is shared by many test processes."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    monkeypatch.setenv("OMP_NUM_THREADS", "1")
-    yield
-    torch.set_num_threads(threads)
-
-
-def test_dry_run_two_gloo_ranks(tmp_path, one_thread):
+def test_dry_run_two_gloo_ranks(tmp_path):
     out = tmp_path / "multicard.json"
     assert multicard.main(["--ranks", "2", "--backend", "gloo", "--device",
                            "cpu", "--out", str(out)]) == 0

@@ -41,6 +41,8 @@ from nori_tpu_torch import scenes_builtin as torch_scenes
 from nori_tpu_torch import wavefront as torch_wf
 from nori_tpu_torch.integrators.path import MIS
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 BOX = dict(width=48, height=32, spp=2, integrator="path_mis",
            sphere_subdiv=1)
 TOTAL_Q = 48 * 32 * 2
@@ -80,22 +82,6 @@ def _pins():
         yield
 
 
-@contextlib.contextmanager
-def _one_thread():
-    """One torch thread for the renders here and in each rank started
-    meanwhile (a spawned rank's torch reads OMP_NUM_THREADS): they are
-    small, and on a host shared by many test processes a thread pool
-    sized to the host's cores slows them a hundredfold."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setenv("OMP_NUM_THREADS", "1")
-            yield
-    finally:
-        torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def two_ranks():
     """{name: (image, stats, launches per rank)} of two gloo ranks."""
@@ -106,16 +92,15 @@ def two_ranks():
             (torch_scenes.cornell_box, SMALL, "batch", {}),
             (torch_scenes.cornell_box, SMALL, "batch",
              dict(batch=RAGGED_BATCH))]
-    with _one_thread():
-        out = parallel.spawn(parallel.render_jobs, 2, jobs, PINS,
-                             device="cpu", timeout=300)
+    out = parallel.spawn(parallel.render_jobs, 2, jobs, PINS,
+                         device="cpu", timeout=300)
     return dict(zip((CHUNK, RAGGED, None, RAGGED_BATCH), out))
 
 
 @pytest.fixture(scope="module")
 def one_rank():
     """{chunk_dev: (image, stats)} of one rank, in this process."""
-    with _pinned(), _one_thread():
+    with _pinned():
         return {c: parallel.render_sharded_wavefront(
             torch_scenes.cornell_box(**BOX), n_lanes_dev=LANES, chunk_dev=c,
             device="cpu") for c in (CHUNK, RAGGED)}
@@ -144,10 +129,9 @@ def test_sharded_wavefront_matches_jax(two_ranks):
 
 def test_one_rank_equals_render_wavefront(one_rank):
     img, st = one_rank[CHUNK]
-    with _one_thread():
-        ref, ref_st = torch_wf.render_wavefront(
-            torch_scenes.cornell_box(**BOX), n_lanes=LANES, chunk=CHUNK,
-            device="cpu")
+    ref, ref_st = torch_wf.render_wavefront(
+        torch_scenes.cornell_box(**BOX), n_lanes=LANES, chunk=CHUNK,
+        device="cpu")
     assert st["devices"] == 1 and st["rays"] == ref_st["rays"]
     assert np.array_equal(img, ref)
 
@@ -177,7 +161,7 @@ def test_checkpoint_resumes_bit_for_bit(tmp_path, monkeypatch, one_rank):
     kw = dict(n_lanes_dev=LANES, chunk_dev=CHUNK, checkpoint_path=ck,
               device="cpu")
     monkeypatch.setattr(torch_wf, "_write_checkpoint", write_then_stop)
-    with pytest.raises(Stop), _one_thread():
+    with pytest.raises(Stop):
         parallel.render_sharded_wavefront(torch_scenes.cornell_box(**BOX),
                                           **kw)
     monkeypatch.setattr(torch_wf, "_write_checkpoint", write)
@@ -186,9 +170,8 @@ def test_checkpoint_resumes_bit_for_bit(tmp_path, monkeypatch, one_rank):
         key = str(d["key"])
     js = jax_scenes.cornell_box(**BOX)
     assert key == jax_wf._checkpoint_key(js, 2, 0, CHUNK) + ":ndev=1"
-    with _one_thread():
-        img, st = parallel.render_sharded_wavefront(
-            torch_scenes.cornell_box(**BOX), **kw)
+    img, st = parallel.render_sharded_wavefront(
+        torch_scenes.cornell_box(**BOX), **kw)
     assert st["done"] and not os.path.exists(ck)
     assert st["rays"] == one_rank[CHUNK][1]["rays"]
     assert np.array_equal(img, one_rank[CHUNK][0])
@@ -208,9 +191,8 @@ def test_sharded_batch_equals_render(two_ranks, batch):
     the same batch."""
     from nori_tpu_torch.render import render
 
-    with _one_thread():
-        ref, ref_st = render(torch_scenes.cornell_box(**SMALL), batch=batch,
-                             device="cpu")
+    ref, ref_st = render(torch_scenes.cornell_box(**SMALL), batch=batch,
+                         device="cpu")
     img, st, _ = two_ranks[batch]
     assert st["devices"] == 2 and st["rays"] == ref_st["rays"]
     assert np.array_equal(img, ref)
@@ -271,14 +253,12 @@ def test_make_group_from_torchrun_environment(monkeypatch):
     for k, v in dict(LOCAL_RANK="0", RANK="0", WORLD_SIZE="1",
                      MASTER_ADDR="localhost", MASTER_PORT=str(port)).items():
         monkeypatch.setenv(k, v)
-    threads = torch.get_num_threads()
     try:
         group, rank, n, dev = parallel.make_group(device="cpu")
         assert (rank, n, dev.type) == (0, 1, "cpu")
         assert dist.get_backend(group) == "gloo"
     finally:
         dist.destroy_process_group()
-        torch.set_num_threads(threads)
 
 
 def test_splat_chunk_past_the_film():

@@ -65,6 +65,7 @@ from nori_tpu_torch.pathgraph import pg as tpg
 from nori_tpu_torch.pathgraph import visual as tvisual
 
 from test_torch_render import ajax_scene
+from torch_threads import one_torch_thread  # noqa: F401
 
 K = 8
 CPU = "cpu"

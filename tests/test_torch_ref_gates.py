@@ -34,6 +34,8 @@ from nori_tpu_torch.scripts import ref_gates
 from nori_tpu_torch.scripts import rmse_gate
 from nori_tpu_torch.testing import ttest
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: a small living room: 16x12, 2 spp, detail 1 (1,024 triangles)
 W, H, SPP, SEED, LANES = 16, 12, 2, 5, 4096
@@ -60,15 +62,6 @@ def _furnace(directory, integrators, references, name="furnace.xml"):
     path.write_text(chip_smoke.furnace_xml(integrators, references,
                                            samples=4000))
     return str(path)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The renders are small: more intra-op threads only spin."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

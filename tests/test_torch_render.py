@@ -33,6 +33,8 @@ from nori_tpu_torch import scenes_builtin as torch_scenes
 from nori_tpu_torch import config as torch_config
 from nori_tpu_torch.accel import traverse as torch_traverse
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 #: the pa2/pa5 ajax camera (scenes/pa2/ajax-normals.xml)
 AJAX_ORIGIN = [-65.6055, 47.5762, 24.3583]
 AJAX_TARGET = [-64.8161, 47.2211, 23.8576]

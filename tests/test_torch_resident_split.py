@@ -36,6 +36,8 @@ from nori_tpu_torch import scene as torch_scene
 from nori_tpu_torch.accel import sweep
 from nori_tpu_torch.scenes_builtin import living_room as torch_living_room
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MISS = 0xFF800000FFFFFFFF
 F32_INF = np.float32(np.inf)

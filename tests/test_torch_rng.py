@@ -16,6 +16,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from nori_tpu_torch.core import rng
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 EDGES = [0, 7, 2**31, 2**32 - 1, 2**32 + 5, 2**40 + 3]
 LANES = np.asarray([0, 1, 2**31 - 1, 2**31, 2**32 - 1, 12345678, 3],
                    np.int64)

@@ -13,6 +13,8 @@ from nori_tpu_torch import spans
 from nori_tpu_torch import wavefront as torch_wf
 from nori_tpu_torch.integrators import whitted
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 N_LANES = 4096
 
 

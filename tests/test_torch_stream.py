@@ -35,6 +35,8 @@ from nori_tpu_torch.accel import sweep
 from nori_tpu_torch import config as torch_config
 from nori_tpu_torch.accel import traverse as torch_traverse
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 N_CAMERA, N_BOUNCE = 256, 512
 #: streamed bound for the small-size tests: soups over 1,024 padded
 #: triangles take the streamed layout in both packages
@@ -414,24 +416,19 @@ def test_streamed_cbox_scan_matches_jax(monkeypatch):
     monkeypatch.setattr(torch_scene_mod, "STREAMED_BYTES", bound)
     monkeypatch.setattr(config, "MERGED_SWEEP", False)
     monkeypatch.setattr(torch_config, "USE_BW_SWEEP", False)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        man = mf.load()
-        desc = mf.scene_builder("cbox_scan")(
-            {**mf.config(man, "cbox_scan"), "width": 24, "height": 18,
-             "n_lat": 24, "n_lon": 20})
-        ref, ref_st = jax_wf.render_wavefront(
-            _plugin_scene("nori_tpu", desc, "path_mis", 2), seed=0,
-            n_lanes=4096)
-        scene = _plugin_scene("nori_tpu_torch", desc, "path_mis", 2)
-        arrays = scene.compile_arrays()
-        assert arrays["tri_packed"].shape[0] == 16
-        assert arrays["tri_tile_bounds"].shape[0] == 2
-        img, st = torch_wf.render_wavefront(scene, seed=0, n_lanes=4096,
-                                            device="cpu")
-    finally:
-        torch.set_num_threads(threads)
+    man = mf.load()
+    desc = mf.scene_builder("cbox_scan")(
+        {**mf.config(man, "cbox_scan"), "width": 24, "height": 18,
+         "n_lat": 24, "n_lon": 20})
+    ref, ref_st = jax_wf.render_wavefront(
+        _plugin_scene("nori_tpu", desc, "path_mis", 2), seed=0,
+        n_lanes=4096)
+    scene = _plugin_scene("nori_tpu_torch", desc, "path_mis", 2)
+    arrays = scene.compile_arrays()
+    assert arrays["tri_packed"].shape[0] == 16
+    assert arrays["tri_tile_bounds"].shape[0] == 2
+    img, st = torch_wf.render_wavefront(scene, seed=0, n_lanes=4096,
+                                        device="cpu")
     assert st["rays"] == ref_st["rays"]
     assert st["steps"] == ref_st["steps"]
     assert img.shape == ref.shape == (18, 24, 3) and np.isfinite(img).all()

@@ -40,6 +40,8 @@ from nori_tpu import scenes_builtin as jax_scenes
 from nori_tpu_torch import scene as torch_scene
 from nori_tpu_torch.accel import sweep
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MISS = 0xFF800000FFFFFFFF
 F32_INF = np.float32(np.inf)

@@ -24,6 +24,8 @@ from nori_tpu.scenes_builtin import living_room as jax_living_room
 from nori_tpu_torch.accel import sweep
 from nori_tpu_torch.scenes_builtin import living_room as torch_living_room
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 N_CAMERA, N_BOUNCE = 256, 512
 
 

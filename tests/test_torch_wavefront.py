@@ -37,6 +37,8 @@ from nori_tpu_torch import wavefront as torch_wf
 from nori_tpu_torch import config as torch_config
 from nori_tpu_torch.accel import traverse as torch_traverse
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 CASES = {
     "living_room": (lambda m: m.living_room(16, 16, 2, detail=3), None),
     "cornell_box": (lambda m: m.cornell_box(16, 16, 2, sphere_subdiv=2),
