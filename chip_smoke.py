@@ -379,6 +379,30 @@ def stream_run(call, rays):
     return visits, sweep.stream_work(ws, rays.shape[1])
 
 
+def n_rt(n: int) -> int:
+    """Ray tiles of n rays."""
+    return n // 256
+
+
+def gate_tally(call) -> dict:
+    """One more run of a streamed sweep, given as call(tally=...): the
+    sub-blocks of STREAM_G triangles its warps tested and those their
+    gates skipped while one of their rays searched, and the skipped
+    share."""
+    import torch
+
+    tally = torch.zeros((2,), dtype=torch.int64, device="cuda")
+    call(tally=tally)
+    tested, culled = tally.tolist()
+    return dict(tested=tested, culled=culled,
+                culled_share=culled / max(tested + culled, 1))
+
+
+def fmt_gate(g: dict) -> str:
+    return (f"warp sub-blocks {g['tested']} tested, {g['culled']} culled "
+            f"({100 * g['culled_share']:.1f}%)")
+
+
 def fmt_work(w: dict) -> str:
     return (f"{w['items']} work items ({w['records']} ray tiles with work, "
             f"at most {w['max_chunks']} chunks)")
@@ -400,15 +424,18 @@ def searching_rays(rays, answer, any_hit: bool):
 
 
 def keys_needed(keys, bits: int, rays, answer, any_hit: bool,
-                  sub_boxes=None):
+                sub_boxes=None, per_warp: bool = False):
     """Triangle groups per ray tile that a sweep over sorted entry keys
     (K2, K2-mxu, K4: tiles; K5, K5-cull: slabs) must test whatever its
     schedule, from the inputs and the answer alone: the candidates whose
     entry bound (the key's) does not exceed the ray tile's final
     skyline, the largest useful t among the rays that search to the
-    end; every skyline of a walk is at least that.  With sub_boxes
-    (K5-cull), of those slabs the sub-blocks that such a ray enters
-    within its useful t.  (n_rt,) int64: tiles or slabs, or
+    end; every skyline of a walk is at least that.  With sub_boxes (the
+    gate's, K5 and K5-cull), of those slabs the sub-blocks that such a
+    ray enters within its useful t, less those of padding only (empty
+    boxes, which no gate passes); per_warp counts a sub-block once for
+    each warp (32 consecutive rays) that holds such a ray, as K5's
+    per-warp gate tests it.  (n_rt,) int64: tiles or slabs, or
     sub-blocks."""
     import torch
     from nori_tpu_torch.accel import sweep
@@ -428,10 +455,22 @@ def keys_needed(keys, bits: int, rays, answer, any_hit: bool,
     cut = rays.clone()
     cut[6] = torch.where(need, rays[6], 1.0)
     cut[7] = torch.where(need, useful, 0.0)
-    enters = torch.isfinite(sweep.entry_min(sub_boxes, cut))
+    per = 8 if per_warp else 1
+    if per_warp:
+        # each warp's rays alone in a ray tile of their own, the rest dead
+        n = rays.shape[1]
+        wide = torch.zeros((8, n * 8), dtype=rays.dtype, device=rays.device)
+        wide[6] = 1.0
+        lane = torch.arange(n, device=rays.device)
+        wide[:, lane // 32 * 256 + lane % 32] = cut
+        cut = wide
+    real = sub_boxes[:, 0] <= sub_boxes[:, 3]
+    enters = (torch.isfinite(sweep.entry_min(sub_boxes, cut))
+              & real).reshape(n_rt, per, -1)
     by_slab = torch.zeros_like(slabs).scatter_(1, (keys & mask).long(), slabs)
     n_sub = sub_boxes.shape[0] // n_slabs
-    return (by_slab.repeat_interleave(n_sub, dim=1) & enters).sum(1)
+    return (by_slab.repeat_interleave(n_sub, dim=1)[:, None]
+            & enters).sum((1, 2))
 
 
 def mt_needed(sd, rays, answer, any_hit: bool):
@@ -1172,9 +1211,11 @@ def check_ajax_kernels(dev) -> dict:
         op = sd.tri_bw if use_bw else sd.tri_packed
         keys, bits = sweep.ray_tile_entry_keys(tb, r)
 
-        def kern(v=None, ws=None):
+        def kern(v=None, ws=None, tally=None):
             return sweep.stream_sweep(op, keys, bits, r, any_hit, use_bw,
-                                      visits=v, workspace=ws)
+                                      visits=v, workspace=ws,
+                                      sub_boxes=sd.tri_sub_boxes,
+                                      tally=tally)
 
         def plain():
             return sweep.stream_sweep_plain(op, r, any_hit, use_bw)
@@ -1185,24 +1226,29 @@ def check_ajax_kernels(dev) -> dict:
         err = max(err, compare_sweep(f"stream_sweep {label}", got, ref,
                                      any_hit, bits=True))
         visits, work = stream_run(kern, r)
-        # the bound counts the slabs the answer shows to be needed, not
-        # the ones this run's schedule happened to test
-        pairs = int(keys_needed(keys, bits, r, ref, any_hit).sum()) * (
-            sweep.STREAM_T * 256)
-        tested = int(visits.sum()) * sweep.stream_visit_group() * 256
+        gate_n = gate_tally(kern)
+        # the bound counts the sub-blocks the answer shows to be needed
+        # (in the slabs it needs), not the ones this run's gates let by
+        g = sweep.STREAM_G
+        slabs = int(keys_needed(keys, bits, r, ref, any_hit).sum())
+        needed = int(keys_needed(keys, bits, r, ref, any_hit,
+                                 sd.tri_sub_boxes, per_warp=True).sum())
+        pairs, tested = needed * g * 32, int(visits.sum()) * g * 32
         timing[label] = dict(
             ms=time_ms(kern), plain_ms=time_ms(plain, 1), pairs=pairs,
-            slabs_per_ray_tile=pairs / 512 / n, pairs_tested=tested,
-            tested_per_ray_tile=tested / 512 / n, visits=visit_stats(visits),
-            work=work, **bound(float(PAIR_OPS["bw" if use_bw else "mt"])
-                               * pairs,
-                               sweep_bytes(12 if use_bw else 9, T, n, n_tt)))
+            slabs_per_ray_tile=slabs / n_rt(n),
+            warp_sub_blocks_per_ray_tile=needed / n_rt(n),
+            pairs_tested=tested, tested_per_ray_tile=tested / 512 / n,
+            visits=visit_stats(visits), work=work, gate=gate_n,
+            **bound(float(PAIR_OPS["bw" if use_bw else "mt"]) * pairs,
+                    sweep_bytes(12 if use_bw else 9, T, n, n_tt)))
         log(f"K5 stream_sweep {label}: {int((got[1] >= 0).sum())} hits "
             f"agree, t bits equal; {timing[label]['ms']:.3f} ms vs plain "
             f"{timing[label]['plain_ms']:.3f} ms, bound "
-            f"{timing[label]['bound_ms']:.3f} ms; "
-            f"{pairs / 512 / n:.2f} slabs needed per ray tile, "
-            f"{tested / 512 / n:.2f} tested; quarter slabs, "
+            f"{timing[label]['bound_ms']:.3f} ms; per ray tile "
+            f"{slabs / n_rt(n):.2f} slabs needed, warp sub-blocks of {g}: "
+            f"{needed / n_rt(n):.2f} needed, "
+            f"{int(visits.sum()) / n_rt(n):.2f} tested; {fmt_gate(gate_n)}; "
             f"{fmt_stats(timing[label]['visits'])}; {fmt_work(work)}")
     timing.update(check_sorted_any_hit(sd, dev))
     bw = timing["bw closest"]
@@ -1219,10 +1265,10 @@ def check_ajax_kernels(dev) -> dict:
                               ("mt any-hit", shadow, True)):
         keys, bits = sweep.ray_tile_entry_keys(tb, r)
 
-        def kern(v=None, ws=None):
+        def kern(v=None, ws=None, tally=None):
             return sweep.stream_sweep_culled(sd.tri_packed, keys, bits, r,
                                              any_hit, CULL_T, visits=v,
-                                             workspace=ws)
+                                             workspace=ws, tally=tally)
 
         def plain():
             return sweep.stream_sweep_plain(sd.tri_packed, r, any_hit, False)
@@ -1235,30 +1281,32 @@ def check_ajax_kernels(dev) -> dict:
                 torch.equal(i_c, i_u) and torch.equal(t_c, t_u))
         if not same:
             raise AssertionError(f"stream_sweep_culled {label}: differs from "
-                                 "K5 uncut")
+                                 "K5")
         visits, work = stream_run(kern, r)
-        group = sweep.stream_visit_group(CULL_T)
+        gate_n = gate_tally(kern)
         # needed: the sub-blocks of the needed slabs that a ray searching
         # to the end enters in time
         pairs = int(keys_needed(
             keys, bits, r, ref, any_hit,
-            sweep.sub_block_boxes(sd.tri_packed, CULL_T)).sum()) * CULL_T * 256
-        tested = int(visits.sum()) * group * 256
+            sweep.sub_block_boxes(sd.tri_packed, CULL_T),
+            per_warp=True).sum()) * CULL_T * 32
+        tested = int(visits.sum()) * sweep.STREAM_G * 32
         timing[label] = dict(
             ms=time_ms(kern), plain_ms=time_ms(plain, 1), pairs=pairs,
             pairs_tested=tested,
-            uncut_ms=out["stream_sweep"]["by_query"][label]["ms"],
-            visits=visit_stats(visits), work=work,
+            gated_ms=out["stream_sweep"]["by_query"][label]["ms"],
+            visits=visit_stats(visits), work=work, gate=gate_n,
             **bound(float(PAIR_OPS["mt"]) * pairs, cull_bytes))
         log(f"K5-cull stream_sweep_culled {label}: equal to its plain "
-            f"version (t bits too) and to K5 uncut; "
+            f"version (t bits too) and to K5; "
             f"{timing[label]['ms']:.3f} ms vs plain "
-            f"{timing[label]['plain_ms']:.3f} ms, K5 uncut "
-            f"{timing[label]['uncut_ms']:.3f} ms, bound "
-            f"{timing[label]['bound_ms']:.3f} ms; sub-blocks of {group}: "
-            f"{pairs / group / n:.2f} needed per ray tile, "
-            f"{tested / group / n:.2f} tested; "
-            f"{fmt_stats(timing[label]['visits'])}; {fmt_work(work)}")
+            f"{timing[label]['plain_ms']:.3f} ms, K5 "
+            f"{timing[label]['gated_ms']:.3f} ms, bound "
+            f"{timing[label]['bound_ms']:.3f} ms; warp sub-blocks of "
+            f"{CULL_T}: {pairs / CULL_T / 32 / n_rt(n):.2f} needed per ray "
+            f"tile, {tested / CULL_T / 32 / n_rt(n):.2f} tested; "
+            f"{fmt_gate(gate_n)}; {fmt_stats(timing[label]['visits'])}; "
+            f"{fmt_work(work)}")
     mt = timing["mt closest"]
     out["stream_sweep_culled"] = record(
         "stream_sweep_culled", mt["ms"], mt["plain_ms"], err,
@@ -1287,13 +1335,15 @@ def check_sorted_any_hit(sd, dev):
     keys, bits = sweep.ray_tile_entry_keys(sd.tri_tile_bounds, srt)
     keys_u, bits_u = sweep.ray_tile_entry_keys(sd.tri_tile_bounds, shadow)
 
-    def kern(v=None, ws=None):
+    def kern(v=None, ws=None, tally=None):
         return sweep.stream_sweep(sd.tri_bw, keys, bits, srt, True, True,
-                                  visits=v, workspace=ws)
+                                  visits=v, workspace=ws,
+                                  sub_boxes=sd.tri_sub_boxes, tally=tally)
 
-    def kern_unsorted(v=None, ws=None):
+    def kern_unsorted(v=None, ws=None, tally=None):
         return sweep.stream_sweep(sd.tri_bw, keys_u, bits_u, shadow, True,
-                                  True, visits=v, workspace=ws)
+                                  True, visits=v, workspace=ws,
+                                  sub_boxes=sd.tri_sub_boxes, tally=tally)
 
     _, idx = kern()
     hit_k = torch.empty_like(idx, dtype=torch.bool)
@@ -1334,28 +1384,36 @@ def check_sorted_any_hit(sd, dev):
             ("bw any-hit unsorted", kern_unsorted, ms_u, (keys_u, bits_u),
              shadow, ref_u)):
         visits, work = stream_run(fn, r)
-        pairs = int(keys_needed(*kb, r, ref, True).sum()) * (
-            sweep.STREAM_T * 256)
-        tested = int(visits.sum()) * sweep.stream_visit_group() * 256
+        gate_n = gate_tally(fn)
+        g = sweep.STREAM_G
+        slabs = int(keys_needed(*kb, r, ref, True).sum())
+        needed = int(keys_needed(*kb, r, ref, True, sd.tri_sub_boxes,
+                                 per_warp=True).sum())
+        pairs, tested = needed * g * 32, int(visits.sum()) * g * 32
         out[label] = dict(ms=t, plain_ms=plain_ms, pairs=pairs,
-                          slabs_per_ray_tile=pairs / 512 / n,
+                          slabs_per_ray_tile=slabs / n_rt(n),
+                          warp_sub_blocks_per_ray_tile=needed / n_rt(n),
                           pairs_tested=tested,
                           tested_per_ray_tile=tested / 512 / n,
-                          visits=visit_stats(visits), work=work,
+                          visits=visit_stats(visits), work=work, gate=gate_n,
                           **bound(float(PAIR_OPS["bw"]) * pairs, nbytes))
-        log(f"K5 stream_sweep {label}: {pairs / 512 / n:.2f} slabs needed "
-            f"per ray tile, {tested / 512 / n:.2f} tested; quarter slabs, "
-            f"{fmt_stats(out[label]['visits'])}; {fmt_work(work)}")
+        log(f"K5 stream_sweep {label}: per ray tile {slabs / n_rt(n):.2f} "
+            f"slabs needed, warp sub-blocks of {g}: {needed / n_rt(n):.2f} "
+            f"needed, {int(visits.sum()) / n_rt(n):.2f} tested; "
+            f"{fmt_gate(gate_n)}; {fmt_stats(out[label]['visits'])}; "
+            f"{fmt_work(work)}")
     out["bw any-hit sorted"]["sort_ms"] = sort_ms
     log(f"K5 stream_sweep bw any-hit sorted (batch {AJAX_SORTED_BATCH}, "
         f"{DEFAULT_BATCH} rays, {int((shadow[6] <= shadow[7]).sum())} live): "
         f"{int(hit_p.sum())} hits agree, traverse.occluded agrees; "
         f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
         f"{out['bw any-hit sorted']['bound_ms']:.3f} ms "
-        f"({out['bw any-hit sorted']['slabs_per_ray_tile']:.2f} slabs per "
-        f"ray tile); the same rays unsorted agree too, {ms_u:.3f} ms, bound "
-        f"{out['bw any-hit unsorted']['bound_ms']:.3f} ms "
-        f"({out['bw any-hit unsorted']['slabs_per_ray_tile']:.2f}); the sort "
+        f"({out['bw any-hit sorted']['warp_sub_blocks_per_ray_tile']:.2f} "
+        f"warp sub-blocks per ray tile); the same rays unsorted agree too, "
+        f"{ms_u:.3f} ms, bound {out['bw any-hit unsorted']['bound_ms']:.3f} "
+        f"ms ({out['bw any-hit unsorted']['warp_sub_blocks_per_ray_tile']:.2f}"
+        f"); "
+        f"the sort "
         f"(K3, argsort, gather) {sort_ms:.3f} ms")
     return out
 
@@ -2395,7 +2453,7 @@ def pathgraph_eval_phase(dev) -> dict:
 
 def _kernel_group(name: str) -> str:
     """Group of a device operation in the whitted batch profile."""
-    m = re.search(r"stream_sweep_items<(\w+), (\w+), (\w+)>", name)
+    m = re.search(r"stream_sweep_items<(\w+), (\w+)>", name)
     if m:
         return "K5 stream_sweep, " + (
             "any hit" if m.group(2) == "true" else "closest hit")

@@ -20,9 +20,9 @@ Each counts its kernel launches in a plain integer attribute
 (`entry_min.launches`, ...), which a run can reset and read to show
 that its main path went through the kernels.  The sweeps take an
 optional `visits` tensor, (n_rt,) int32 on the card, into which the
-kernel writes how many triangle groups each ray tile tested (the work
-a run's data needs, for the kernels' bounds); the plain versions sweep
-densely and leave it untouched.  The resident sweeps (K2, K2-mxu, K4)
+kernel writes how many triangle groups each ray tile tested (the
+streamed sweeps: each warp's gated sub-blocks); the plain versions
+sweep densely and leave it untouched.  The resident sweeps (K2, K2-mxu, K4)
 allocate their scratch per call, or take it as `workspace`
 (resident_workspace), after which tail_items reads how much work the
 first pass left to the tail pass.  So do the streamed and the 2-D sweeps
@@ -57,6 +57,11 @@ TILE_U = 128
 #: (csrc/common.cuh STREAM_S, MT_S)
 STREAM_S = 2
 MT_S = 4
+#: triangles per sub-block of the streamed sweep's per-warp gate, and the
+#: gate's relative widening of a box (csrc/common.cuh STREAM_G, GATE_PAD;
+#: SceneData.tri_sub_boxes holds a streamed soup's boxes at STREAM_G)
+STREAM_G = 32
+GATE_PAD = 2.0 ** -12
 #: consecutive boxes under one gate box of the key kernels: K1's group,
 #: and K3's below LANE_WIDE boxes, twice that from there on
 #: (csrc/common.cuh KEY_GROUP, LANE_GROUP; PERF.md has the counts and
@@ -735,17 +740,32 @@ def _stream_ptrs(workspace, n: int, device):
                        base + 4 * (cnt + 4))
 
 
-def stream_visit_group(cull_t: int = 0) -> int:
-    """Triangles per visit that the streamed sweep counts in `visits`:
-    a quarter slab, or with sub-slab culling a sub-block of cull_t
-    triangles if that is smaller."""
-    return min(cull_t, STREAM_U) if cull_sub_blocks(cull_t) > 1 else STREAM_U
+def _check_sub_boxes(sub_boxes, T: int, sub_t: int, device):
+    _check(sub_boxes, "sub_boxes", torch.float32, 2, device)
+    if tuple(sub_boxes.shape) != (T // sub_t, 8):
+        raise ValueError(f"sub_boxes: expected ({T // sub_t}, 8) boxes of "
+                         f"{sub_t} triangles, got {tuple(sub_boxes.shape)}")
+    if sub_boxes.data_ptr() % 16:
+        raise ValueError("sub_boxes: the gate's box loads need 16-byte "
+                         "alignment")
+
+
+def _tally_ptr(tally, device) -> int:
+    """Device pointer of an optional (2,) int64 gate tally, or 0."""
+    if tally is None:
+        return 0
+    _check(tally, "tally", torch.int64, 1, device)
+    if tally.shape[0] != 2:
+        raise ValueError(f"tally: expected (2,), got {tuple(tally.shape)}")
+    return tally.data_ptr()
 
 
 def _stream_launch(tris_op, keys, idx_bits: int, rays, any_hit: bool,
-                   use_bw: bool, n_sub: int, sub_boxes, visits, workspace):
+                   use_bw: bool, sub_t: int, sub_boxes, visits, tally,
+                   workspace):
     if tris_op.data_ptr() % 16:
         raise ValueError("tris_op: the slab copies need 16-byte alignment")
+    _check_sub_boxes(sub_boxes, tris_op.shape[1], sub_t, rays.device)
     n = rays.shape[1]
     workspace, ptrs = _stream_ptrs(workspace, n, rays.device)
     t = torch.empty((n,), dtype=torch.float32, device=rays.device)
@@ -754,9 +774,9 @@ def _stream_launch(tris_op, keys, idx_bits: int, rays, any_hit: bool,
     err = _launch(
         lib.stream_sweep_launch, rays.device, tris_op.data_ptr(), int(use_bw),
         tris_op.shape[1], keys.data_ptr(), keys.shape[1], idx_bits,
-        rays.data_ptr(), n, t.data_ptr(), idx.data_ptr(), int(any_hit), n_sub,
-        0 if sub_boxes is None else sub_boxes.data_ptr(),
-        _visits_ptr(visits, n // TILE_N, rays.device), *ptrs)
+        rays.data_ptr(), n, t.data_ptr(), idx.data_ptr(), int(any_hit), sub_t,
+        sub_boxes.data_ptr(), _visits_ptr(visits, n // TILE_N, rays.device),
+        _tally_ptr(tally, rays.device), *ptrs)
     # a workspace allocated here may be freed on return: the caching
     # allocator hands it out again only to work queued after the sweep
     # on the same stream
@@ -764,11 +784,14 @@ def _stream_launch(tris_op, keys, idx_bits: int, rays, any_hit: bool,
 
 
 def stream_sweep(tris_op, keys, idx_bits: int, rays, any_hit: bool = False,
-                 use_bw: bool = True, visits=None, workspace=None):
+                 use_bw: bool = True, visits=None, workspace=None,
+                 sub_boxes=None, tally=None):
     """K5 wrapper: (t (N,) f32, idx (N,) int32) for (8, N) rays against
     the (16, T) streamed operand, walking `keys` from
     ray_tile_entry_keys on the (T / STREAM_T, 8) slab bounds.  use_bw
     says which rows the operand holds (with 16 rows its shape cannot).
+    On a card `sub_boxes` is required: the soup's (T / STREAM_G, 8)
+    sub-block boxes, SceneData.tri_sub_boxes (stream_sub_boxes).
 
     Kernel: csrc/stream_sweep.cu, replacing pallas_mt.py
     `_mt_stream_kernel`.  Bound on the H100 by the pair tests'
@@ -780,16 +803,25 @@ def stream_sweep(tris_op, keys, idx_bits: int, rays, any_hit: bool = False,
     row's keys stay nearly in order (a closest walk prunes as it goes)
     while every row is worked on at once.  An item starts from its
     rays' packed best, stages its quarters through a cp.async double
-    buffer, and folds its hits back with a 64-bit atomic minimum, which
-    is exact in any order.  `visits` counts quarter slabs
-    (stream_visit_group).  The plain version (CPU tensors) sweeps
-    densely and does not read the keys.
+    buffer, tests each landed quarter in sub-blocks of STREAM_G
+    triangles, each only in the warps one of whose rays may hit it
+    within its useful t (its widened box: a gate that skips no answer),
+    and folds its hits back with a 64-bit atomic minimum, which is exact
+    in any order.  `visits` counts the sub-blocks of STREAM_G that each
+    ray tile's warps tested, once a warp; `tally`, a (2,) int64 on the
+    card, gets the sub-blocks the warps tested and those their gates
+    skipped added to it.  The plain version (CPU tensors) sweeps densely
+    and reads neither the keys nor the boxes.
     """
     _check_stream(tris_op, keys, idx_bits, rays)
     if rays.device.type == "cpu":
         return stream_sweep_plain(tris_op, rays, any_hit, use_bw)
+    if sub_boxes is None:
+        raise ValueError("sub_boxes: the streamed sweep's gate needs the "
+                         "soup's sub-block boxes (SceneData.tri_sub_boxes)")
     t, idx, err = _stream_launch(tris_op, keys, idx_bits, rays, any_hit,
-                                 use_bw, 1, None, visits, workspace)
+                                 use_bw, STREAM_G, sub_boxes, visits, tally,
+                                 workspace)
     stream_sweep.launches += 1
     _raise_on(err, "stream_sweep")
     return t, idx
@@ -826,22 +858,42 @@ def sub_block_boxes(tris_op, cull_t: int):
                                   device=tris_op.device)], dim=1).contiguous()
 
 
+def stream_sub_boxes(tri_packed, sub_t: int = STREAM_G):
+    """The streamed sweep's gate boxes of a soup: sub_block_boxes of the
+    Moller-Trumbore rows at sub_t, with an empty box (lo +inf, hi -inf)
+    for each sub-block whose triangles are all points (e1 = e2 = 0: the
+    padding, which no pair test accepts), so that no gate passes it.
+    A resident soup (9 rows) gets a (1, 8) zero placeholder, as
+    tri_mxu does for a streamed one."""
+    if tri_packed.shape[0] != 16:
+        return torch.zeros((1, 8), dtype=torch.float32,
+                           device=tri_packed.device)
+    boxes = sub_block_boxes(tri_packed, sub_t)
+    point = (tri_packed[3:9] == 0).all(0).reshape(-1, sub_t).all(1)
+    # filled on the device: no copy from the host
+    empty = torch.full((8,), float("inf"), dtype=boxes.dtype,
+                       device=boxes.device)
+    empty[3:6] = -float("inf")
+    empty[6:8] = 0.0
+    return torch.where(point[:, None], empty, boxes).contiguous()
+
+
 def stream_sweep_culled(tris_op, keys, idx_bits: int, rays,
                         any_hit: bool = False, cull_t: int = 128,
-                        visits=None, workspace=None):
+                        visits=None, workspace=None, sub_boxes=None,
+                        tally=None):
     """K5-cull wrapper: stream_sweep on the 16-row Moller-Trumbore
-    operand, each slab tested in sub-blocks of cull_t triangles (a
-    divisor of STREAM_T smaller than it) gated by their boxes.
+    operand, gated by the boxes of its sub-blocks of cull_t triangles (a
+    divisor of STREAM_T smaller than it): `sub_boxes`, (T / cull_t, 8),
+    or when not given sub_block_boxes(tris_op, cull_t), computed here.
 
-    Kernel: csrc/stream_sweep.cu with n_sub = STREAM_T / cull_t,
-    replacing pallas_mt.py `_mt_stream_kernel` with `n_sub > 1`, in
-    K5's two launches.  A landed quarter slab's sub-block is tested only
-    if a ray of the block, still searching, enters its box before its
-    useful t (one slab test per thread and a __syncthreads_or); the
-    useful t starts from the ray's packed best, an upper bound of the
-    final one, so no winner is skipped.  `visits` then counts sub-blocks
-    (stream_visit_group(cull_t) triangles each).  Culling is exact, so
-    the plain version is the dense sweep.
+    Kernel: csrc/stream_sweep.cu, K5's walk and per-warp gate with the
+    sub-blocks of STREAM_G triangles gated by the cull_t boxes that
+    cover them, replacing pallas_mt.py `_mt_stream_kernel` with
+    `n_sub > 1`.  The useful t starts from the ray's packed best, an
+    upper bound of the final one, so no winner is skipped.  `visits`
+    and `tally` count as K5's.  Culling is exact, so the plain version
+    is the dense sweep.
     """
     _check_stream(tris_op, keys, idx_bits, rays)
     n_sub = cull_sub_blocks(cull_t)
@@ -850,9 +902,10 @@ def stream_sweep_culled(tris_op, keys, idx_bits: int, rays,
                          f"{STREAM_T} smaller than it")
     if rays.device.type == "cpu":
         return stream_sweep_plain(tris_op, rays, any_hit, use_bw=False)
+    if sub_boxes is None:
+        sub_boxes = sub_block_boxes(tris_op, cull_t)
     t, idx, err = _stream_launch(tris_op, keys, idx_bits, rays, any_hit,
-                                 False, n_sub,
-                                 sub_block_boxes(tris_op, cull_t), visits,
+                                 False, cull_t, sub_boxes, visits, tally,
                                  workspace)
     stream_sweep_culled.launches += 1
     _raise_on(err, "stream_sweep_culled")

@@ -6,11 +6,15 @@ per-ray-tile candidate keys (K1) and run the resident sweep (K2, or
 K2-mxu on the matmul-form operand with config.USE_MXU_SWEEP) or, for
 streamed-scale scenes (16-row operands, STREAM_T-triangle slab bounds,
 as `Scene.compile_arrays` lays them out), the streamed sweep (K5, or
-K5-cull with config.STREAM_CULL_T on the Moller-Trumbore operand).  A
+K5-cull with config.STREAM_CULL_T on the Moller-Trumbore operand),
+gated by the scene's sub-block boxes (SceneData.tri_sub_boxes).  A
 streamed scene's shadow query first sorts its rays by their own
 candidate slabs (K3).  With spans on (nori_tpu_torch.spans), each
 streamed sweep is a span `sweep.stream` and adds 1 to the counter
-`sweeps.streamed`, and the shadow presort is a span `step.shadow_sort`.
+`sweeps.streamed`, and the shadow presort is a span `step.shadow_sort`;
+K5's warps add the sub-blocks they test and skip to a tally on the
+card, which a driver adds to the counters `sweeps.stream_groups` and
+`sweeps.stream_groups_culled` once an image (count_gate_tally).
 `intersect_mixed` runs both queries in one mixed launch (K4) for the
 wavefront's merged step.  The switches in `nori_tpu_torch.config` are
 read at every query.
@@ -28,6 +32,7 @@ Triangle test semantics match Mesh::rayIntersect (src/mesh.cpp:51-88):
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -35,9 +40,9 @@ import torch
 from nori_tpu_torch import config, spans
 from nori_tpu_torch.accel.bvh import LEAF_SIZE
 from nori_tpu_torch.accel.sweep import (
-    TILE_N, cull_sub_blocks, lane_keys, pack_rays, ray_tile_entry_keys,
-    resident_sweep, resident_sweep_mixed, resident_sweep_mxu, stream_sweep,
-    stream_sweep_culled)
+    STREAM_G, TILE_N, cull_sub_blocks, lane_keys, pack_rays,
+    ray_tile_entry_keys, resident_sweep, resident_sweep_mixed,
+    resident_sweep_mxu, stream_sub_boxes, stream_sweep, stream_sweep_culled)
 from nori_tpu_torch.core.vecmath import cross
 from nori_tpu_torch.scene import scene_bvh
 
@@ -212,26 +217,93 @@ def sweep_operand(sd) -> str:
     return "bw" if config.USE_BW_SWEEP else "mt"
 
 
+#: SceneData -> {cull_t: its K5-cull gate boxes}, beside the scene data
+_CULL_BOXES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def cull_boxes(sd, cull_t: int):
+    """sd's gate boxes of cull_t triangles for K5-cull: tri_sub_boxes at
+    STREAM_G; another size is built (sweep.stream_sub_boxes) at the
+    scene's first query with it, which a driver runs eagerly, and kept
+    beside the scene data."""
+    if cull_t == STREAM_G:
+        return sd.tri_sub_boxes
+    per = _CULL_BOXES.setdefault(sd, {})
+    if cull_t not in per:
+        per[cull_t] = stream_sub_boxes(sd.tri_packed, cull_t)
+    return per[cull_t]
+
+
+#: per card, while spans are on: [K5's gate tally, (2,) int64 on the
+#: card that every streamed sweep's warps add to, and the two counts
+#: already added to spans' counters]
+_TALLY: dict = {}
+
+
+def _card(device) -> torch.device:
+    return torch.device("cuda", device.index if device.index is not None
+                        else torch.cuda.current_device())
+
+
+def _gate_tally(device):
+    """The tally K5 adds to on `device` while spans are on, else None.
+    It is made at the first streamed sweep with spans on, which a driver
+    runs eagerly; made in a capture, the memset would run at each replay,
+    so a capture that finds none passes none."""
+    if device.type != "cuda" or not spans.enabled():
+        return None
+    entry = _TALLY.get(_card(device))
+    if entry is None:
+        if torch.cuda.is_current_stream_capturing():
+            return None
+        entry = _TALLY[_card(device)] = [
+            torch.zeros((2,), dtype=torch.int64, device=device), [0, 0]]
+    return entry[0]
+
+
+def count_gate_tally(device) -> None:
+    """Add to spans' counters `sweeps.stream_groups` and
+    `sweeps.stream_groups_culled` the sub-blocks that K5's warps on
+    `device` tested, and those their gates skipped while a ray still
+    searched, since the last call.  A replayed sweep adds to the card's
+    tally by itself.  Reads the card: a driver calls it once an image
+    inside its copy_out sync, after the image's copy, so the read waits
+    for nothing."""
+    if device.type != "cuda" or not spans.enabled():
+        return
+    entry = _TALLY.get(_card(device))
+    if entry is None:
+        return
+    now = entry[0].tolist()
+    spans.count("sweeps.stream_groups", now[0] - entry[1][0])
+    spans.count("sweeps.stream_groups_culled", now[1] - entry[1][1])
+    entry[1] = now
+
+
 def _sweep(sd, rays, any_hit: bool):
     """(t, idx) dispatch as traverse.py:249-305 (`_sweep_any`), less the
     TPU's memory budgets: the operand lives in device memory.  The
     Baldwin-Weber rows when config.USE_BW_SWEEP, else the
     Moller-Trumbore soup, whose rounding matches the JAX package's CPU
-    scan path."""
+    scan path.  A streamed sweep is gated by the scene's boxes."""
     keys, idx_bits = ray_tile_entry_keys(sd.tri_tile_bounds, rays)
     op = sweep_operand(sd)
     use_bw = op == "bw"
     if streamed(sd):
         cull_t = config.STREAM_CULL_T
         spans.count("sweeps.streamed")
+        tally = _gate_tally(rays.device)
         with spans.span("sweep.stream"):
             if not use_bw and cull_sub_blocks(cull_t) > 1:
                 return stream_sweep_culled(sd.tri_packed, keys, idx_bits,
                                            rays, any_hit=any_hit,
-                                           cull_t=cull_t)
+                                           cull_t=cull_t,
+                                           sub_boxes=cull_boxes(sd, cull_t),
+                                           tally=tally)
             return stream_sweep(sd.tri_bw if use_bw else sd.tri_packed,
                                 keys, idx_bits, rays, any_hit=any_hit,
-                                use_bw=use_bw)
+                                use_bw=use_bw, sub_boxes=sd.tri_sub_boxes,
+                                tally=tally)
     if op == "mxu":
         return resident_sweep_mxu(sd.tri_mxu, keys, idx_bits, rays,
                                   any_hit=any_hit)

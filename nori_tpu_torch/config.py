@@ -19,12 +19,14 @@ them between renders:
   USE_MXU_SWEEP  resident scenes sweep the matmul-form operand
                  (`tri_mxu`, kernel K2-mxu).  The merged step's mixed
                  sweep ignores it, as the JAX package's does.
-  STREAM_CULL_T  streamed scenes test each slab in sub-blocks of this
-                 many triangles, each gated by its bounding box (kernel
-                 K5-cull); 0 disables.  Taken only with the
-                 Moller-Trumbore operand (USE_BW_SWEEP False), whose
-                 rows give the sub-block boxes, and only for a divisor
-                 of STREAM_T smaller than it.
+  STREAM_CULL_T  streamed scenes gate their pair tests by the boxes of
+                 sub-blocks of this many triangles (kernel K5-cull, the
+                 JAX package's `n_sub > 1`) in place of the scene's own
+                 sub-blocks of sweep.STREAM_G, by which every streamed
+                 sweep is gated on either operand (K5); 0 keeps those.
+                 Taken only with the Moller-Trumbore operand
+                 (USE_BW_SWEEP False), as the JAX package takes it, and
+                 only for a divisor of STREAM_T smaller than it.
   MERGED_SWEEP   the wavefront's merged step: one mixed launch (kernel
                  K4) traces the next bounce's closest hits and this
                  step's shadow rays; NEE modes on resident scenes only.

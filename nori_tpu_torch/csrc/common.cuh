@@ -36,6 +36,19 @@
 #define TILE_U 128
 #define STREAM_S 2
 #define MT_S 4
+// The streamed sweep tests a landed quarter in sub-blocks of STREAM_G
+// triangles, each gated per warp by its box (stream_walk); the scene
+// carries those boxes (SceneData.tri_sub_boxes).  Chosen from 16, 32
+// and 64 by the card's times on the ajax stand-in's rays and a cbox_scan
+// step's (PERF.md).
+#ifndef STREAM_G  // scripts/stream_tune.py builds other sizes too
+#define STREAM_G 32
+#endif
+// A gate box is widened on every side by GATE_PAD times the largest
+// coordinate magnitude of the box and the ray's origin (gate_box).
+#ifndef GATE_PAD
+#define GATE_PAD 0x1p-12f
+#endif
 
 // The key kernels (entry_min.cu, lane_keys.cu) gate their ray-box tests
 // by a box around KEY_GROUP (K1) or LANE_GROUP (K3; twice that on many
@@ -70,6 +83,37 @@ __device__ __forceinline__ bool slab(
     float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
     *tn_out = tn;
     return (tn <= tf) && (tf >= mint) && (tn <= maxt);
+}
+
+// The streamed sweep's gate: may a triangle inside box b = [lo xyz | hi
+// xyz] pass a pair test at a t in [mint, tu] of the ray (o, 1/d = i),
+// o_mag the largest |o| component?  False for an empty box (lo > hi: a
+// sub-block of padding triangles only).
+//
+// Conservative, not exact: a BW or MT test that accepts a hit at t puts
+// the ray's point at t within some ulps of M of the triangle, hence of
+// b (M the largest coordinate magnitude of the box and the origin; the
+// count of ulps grows with a sliver's aspect and a grazing ray's
+// 1/angle).  The box is widened by GATE_PAD * M = 2^-12 M, 2,048 to
+// 4,096 ulps of M, so the ray's interval in the widened box holds t
+// with a margin that also covers the slab test's own rounding.
+// safe_inv's clamp of |d| < 1e-20 to 1e-20 can shorten that axis's
+// interval only to about the margin times 1e20, past any t of a scene.
+__device__ __forceinline__ bool gate_box(const float* b, float ox, float oy,
+                                         float oz, float ix, float iy,
+                                         float iz, float o_mag, float mint,
+                                         float tu) {
+    const float4 lo = __ldg(reinterpret_cast<const float4*>(b));
+    const float2 hi = __ldg(reinterpret_cast<const float2*>(b + 4));
+    if (!(lo.x <= lo.w)) return false;
+    const float m = fmaxf(
+        fmaxf(o_mag, fmaxf(fmaxf(fabsf(lo.x), fabsf(lo.y)), fabsf(lo.z))),
+        fmaxf(fmaxf(fabsf(lo.w), fabsf(hi.x)), fabsf(hi.y)));
+    const float e = m * GATE_PAD;
+    const float w[6] = {lo.x - e, lo.y - e, lo.z - e,
+                        lo.w + e, hi.x + e, hi.y + e};
+    float tn;
+    return slab(w, ox, oy, oz, ix, iy, iz, mint, tu, &tn);
 }
 
 // The same test on a box and a ray held as two 16-byte words each, as

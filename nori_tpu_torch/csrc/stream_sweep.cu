@@ -4,7 +4,7 @@
 //
 // Replaces the TPU kernel nori_tpu/accel/pallas_mt.py
 // `_mt_stream_kernel` (closest and any-hit forms, Baldwin-Weber or
-// Moller-Trumbore operand; with `n_sub > 1`, sub-slab culling, K5-cull),
+// Moller-Trumbore operand; K5-cull for its `n_sub > 1`),
 // called through `_stream_call` / `mt_sweep_streamed`.
 //
 // Contract: tris (16, T) float32, T a multiple of STREAM_T, rows
@@ -13,16 +13,18 @@
 // bounds, each row ascending, each key a slab's minimum entry distance
 // bits with the slab index in the low idx_bits bits.  Output t (N,)
 // float32 and idx (N,) int32, idx -1 on a miss; ties in t keep the
-// lowest triangle index.  For any-hit only idx >= 0 is meaningful.  With
-// sub-slab culling (n_sub > 1, Moller-Trumbore operand only) sub_boxes
-// holds (T / sub_t, 8) boxes [lo xyz | hi xyz | pad], one per sub-block
-// of sub_t = STREAM_T / n_sub triangles.  visits, when not null,
-// receives per ray tile the number of triangle groups it tested:
-// quarter slabs of STREAM_U triangles, or, when culling, groups of
-// min(sub_t, STREAM_U).  The caller's workspace holds the per-ray
-// packed best (N x 8 bytes), one record of 4 int32 per ray tile, three
-// counters, and one pending count and one published skyline per ray
-// tile.
+// lowest triangle index.  For any-hit only idx >= 0 is meaningful.
+// sub_boxes holds (T / sub_t, 8) boxes [lo xyz | hi xyz | pad], one per
+// sub_t consecutive triangles (sub_t a divisor of STREAM_T: STREAM_G
+// from the scene, SceneData.tri_sub_boxes, or K5-cull's cull_t), an
+// empty box (lo +inf, hi -inf) for padding triangles only.  visits,
+// when not null, receives per ray tile the sub-blocks of STREAM_G
+// triangles that its warps tested, summed over the 8 warps; tally, when
+// not null, two counters to which every warp adds the sub-blocks it
+// tested and those its gate skipped while one of its rays still
+// searched.  The caller's workspace holds the per-ray packed best (N x
+// 8 bytes), one record of 4 int32 per ray tile, three counters, and
+// one pending count and one published skyline per ray tile.
 //
 // Bound on the H100: the pair tests' arithmetic (~40 flops BW, ~56
 // MT, 512 per ray and visited slab).  The operand (26 MB of read rows
@@ -67,13 +69,17 @@
 // chunks with capped key rows and an overflow fallback: one pair of
 // launches covers all rays with uncapped keys.
 //
-// Sub-slab culling (K5-cull): after a quarter lands, each of its
-// sub-blocks is tested only if some ray of the block, still searching,
-// enters the sub-block's box before its useful t (min(bt, maxt) for
-// closest, maxt for any-hit): a slab test and one __syncthreads_or per
-// sub-block.  bt starts from the packed best, an upper bound, so
-// culling only skips sub-blocks no ray can hit in time and the answer
-// equals the dense sweep's.
+// The gate: after a quarter lands, each warp tests its sub-blocks of
+// STREAM_G triangles only if one of its 32 rays, still searching, may
+// hit a triangle of it within its useful t (min(bt, maxt) inclusive
+// for closest, maxt for any-hit): a slab test per ray against the
+// widened boxes that cover the sub-block (gate_box) and one __any_sync;
+// the warps do not wait for each other, and the block keeps its one
+// barrier a quarter.  bt starts from the packed best, an upper bound of
+// the final one, and a skipped sub-block holds no triangle the pair
+// test would accept in time, so the answer equals the dense sweep's.
+// K5-cull is the same walk on the Moller-Trumbore operand, gated by its
+// own sub-blocks' boxes.
 #include "common.cuh"
 
 #define STREAM_Q (STREAM_T / STREAM_U)  // work items per chunk of keys
@@ -85,19 +91,27 @@ struct StreamSmem {
     Skyline sky;
 };
 
+// What a walk counts: the triangle groups its warps tested and, for the
+// tally, the groups its warps' gates skipped while a ray searched.
+struct WalkCount {
+    int tested = 0, culled = 0;
+};
+
 // Walks quarter q of the slabs of keys row[k0 .. k1) of one ray tile,
 // from each thread's best (bt, bi) and the block's skyline (t_hi,
-// alive), which it updates; adds the triangle groups it tested to
-// *n_visits.  Every branch on t_hi, alive and k is uniform across the
-// block.
-template <bool BW, bool CULL>
+// alive), which it updates; each warp adds to *n the sub-blocks of
+// STREAM_G triangles it tested and (with `tally`) those its gate
+// skipped.  The gate reads the boxes of each sub_t triangles (sub_t a
+// divisor of STREAM_T).  Every branch on t_hi, alive and k is uniform
+// across the block, every branch on a gate across the warp.
+template <bool BW>
 __device__ void stream_walk(StreamSmem<BW>& sm, const float* tris, int T,
                             const int* row, int k0, int k1, int q,
                             int idx_mask, const Ray& y, bool live, bool ah,
-                            int n_sub, const float* sub_boxes,
+                            int sub_t, const float* sub_boxes, bool tally,
                             unsigned long long* best_r,
                             unsigned long long& known, float& bt, int& bi,
-                            int& t_hi, bool& alive, int* n_visits) {
+                            int& t_hi, bool& alive, WalkCount* n) {
     constexpr int ROWS = StreamSmem<BW>::rows;
     auto passes = [&](int k) { return (row[k] & ~idx_mask) <= t_hi; };
     auto stage = [&](int k, int slot) {
@@ -106,11 +120,10 @@ __device__ void stream_walk(StreamSmem<BW>& sm, const float* tris, int T,
             tris + (size_t)j * STREAM_T + q * STREAM_U, (size_t)T,
             sm.tri[slot]);
     };
-    // sub-blocks of sub_t triangles; a quarter is tested in spans
-    const int sub_t = CULL ? STREAM_T / n_sub : STREAM_U;
-    const int span = sub_t < STREAM_U ? sub_t : STREAM_U;
     const float ix = safe_inv(y.dx), iy = safe_inv(y.dy), iz = safe_inv(y.dz);
-    int k = k0, nv = 0, tested = 0;
+    const float o_mag =
+        fmaxf(fmaxf(fabsf(y.ox), fabsf(y.oy)), fabsf(y.oz));
+    int k = k0, nv = 0;
     if (!(alive && k < k1 && passes(k))) return;
     stage(k, 0);
     __pipeline_wait_prior(0);
@@ -123,24 +136,29 @@ __device__ void stream_walk(StreamSmem<BW>& sm, const float* tris, int T,
         if (next) stage(k + 1, (nv + 1) & 1);
         const float* tile = sm.tri[nv & 1];
         ++nv;
-        for (int c0 = 0; c0 < STREAM_U; c0 += span) {
-            if (CULL) {
-                // can any ray still searching enter this sub-block in time?
-                const int sb = (q * STREAM_U + c0) / sub_t;
-                float tn;
-                const bool want =
-                    needs(live, ah, bi) &&
-                    slab(sub_boxes + ((size_t)j * n_sub + sb) * 8, y.ox, y.oy,
-                         y.oz, ix, iy, iz, y.mint,
-                         ah ? y.maxt : fminf(bt, y.maxt), &tn);
-                if (__syncthreads_or(want) == 0) continue;
+        const int base = j * STREAM_T + q * STREAM_U;
+        for (int c0 = 0; c0 < STREAM_U; c0 += STREAM_G) {
+            // the warp tests the sub-block if one of its rays, still
+            // searching, may hit a triangle of it within its useful t
+            const bool need = needs(live, ah, bi);
+            bool want = false;
+            if (need) {
+                const float tu = ah ? y.maxt : fminf(bt, y.maxt);
+                const int b1 = (base + c0 + STREAM_G - 1) / sub_t;
+                for (int b = (base + c0) / sub_t; b <= b1 && !want; ++b) {
+                    want = gate_box(sub_boxes + (size_t)b * 8, y.ox, y.oy,
+                                    y.oz, ix, iy, iz, o_mag, y.mint, tu);
+                }
             }
-            ++tested;
-            if (needs(live, ah, bi)) {
-                const int base = j * STREAM_T + q * STREAM_U;
+            if (!__any_sync(0xffffffffu, want)) {
+                if (tally && __any_sync(0xffffffffu, need)) ++n->culled;
+                continue;
+            }
+            ++n->tested;
+            if (need) {
                 // independent pair tests interleave; the fold stays in order
 #pragma unroll 8
-                for (int c = c0; c < c0 + span; ++c) {
+                for (int c = c0; c < c0 + STREAM_G; ++c) {
                     bool hit;
                     float t;
                     pair_test<BW, STREAM_U>(tile, c, y.ox, y.oy, y.oz, y.dx,
@@ -163,7 +181,6 @@ __device__ void stream_walk(StreamSmem<BW>& sm, const float* tris, int T,
         ++k;
         if (!(alive && next && passes(k))) break;
     }
-    *n_visits += tested;
 }
 
 template <bool ANY_HIT>
@@ -195,13 +212,14 @@ __global__ void stream_plan(const int* __restrict__ keys, int n_keys,
     if (threadIdx.x == 0) push_record(w, rt, k_end, STREAM_S, STREAM_Q, t_hi);
 }
 
-template <bool BW, bool ANY_HIT, bool CULL>
+template <bool BW, bool ANY_HIT>
 __global__ void stream_sweep_items(
         const float* __restrict__ tris, int T, const int* __restrict__ keys,
         int n_keys, int idx_mask, const float* __restrict__ rays, int n,
-        int n_sub, const float* __restrict__ sub_boxes,
+        int sub_t, const float* __restrict__ sub_boxes,
         float* __restrict__ t_out, int* __restrict__ idx_out,
-        int* __restrict__ visits, Work w) {
+        int* __restrict__ visits, unsigned long long* __restrict__ tally,
+        Work w) {
     __shared__ StreamSmem<BW> sm;
     __shared__ ItemSlot slot;
     // an item whose first key lies beyond the ray tile's published
@@ -218,21 +236,29 @@ __global__ void stream_sweep_items(
             const bool live = y.mint <= y.maxt;
             unsigned long long known = __ldcg(&w.best[r]);
             float bt;
-            int bi, t_hi, n_visits = 0;
+            int bi, t_hi;
             bool alive;
+            WalkCount nc;
             unpack_best(known, &bt, &bi);
             skyline_start(sm.sky, live, ANY_HIT, bt, bi, y.maxt, &t_hi,
                           &alive);
-            stream_walk<BW, CULL>(sm, tris, T, keys + (size_t)rt * n_keys,
-                                  it.y, it.z, it.w, idx_mask, y, live,
-                                  ANY_HIT, n_sub, sub_boxes, &w.best[r],
-                                  known, bt, bi, t_hi, alive, &n_visits);
+            stream_walk<BW>(sm, tris, T, keys + (size_t)rt * n_keys, it.y,
+                            it.z, it.w, idx_mask, y, live, ANY_HIT, sub_t,
+                            sub_boxes, tally != nullptr, &w.best[r], known,
+                            bt, bi, t_hi, alive, &nc);
             const unsigned long long p = pack_best(bt, bi);
             if (p < known) atomicMin(&w.best[r], p);
-            if (threadIdx.x == 0) {
-                atomicMin(&w.row_hi[rt], alive ? t_hi : -1);
-                if (visits != nullptr && n_visits > 0) {
-                    atomicAdd(&visits[rt], n_visits);
+            if (threadIdx.x == 0) atomicMin(&w.row_hi[rt], alive ? t_hi : -1);
+            // each warp's counts, the same in all its lanes
+            if ((threadIdx.x & 31) == 0) {
+                if (visits != nullptr && nc.tested > 0) {
+                    atomicAdd(&visits[rt], nc.tested);
+                }
+                if (tally != nullptr && nc.tested > 0) {
+                    atomicAdd(&tally[0], (unsigned long long)nc.tested);
+                }
+                if (tally != nullptr && nc.culled > 0) {
+                    atomicAdd(&tally[1], (unsigned long long)nc.culled);
                 }
             }
         }
@@ -247,11 +273,12 @@ __global__ void stream_sweep_items(
     }
 }
 
-template <bool BW, bool AH, bool CULL>
+template <bool BW, bool AH>
 static int launch(const float* tris, int T, const int* keys, int n_keys,
-                  int idx_mask, const float* rays, int n, int n_sub,
+                  int idx_mask, const float* rays, int n, int sub_t,
                   const float* sub_boxes, float* t_out, int* idx_out,
-                  int* visits, Work w, cudaStream_t stream) {
+                  int* visits, unsigned long long* tally, Work w,
+                  cudaStream_t stream) {
     const int n_rt = n / TILE_N;
     cudaError_t err = cudaMemsetAsync(w.counters, 0, 3 * sizeof(int), stream);
     if (err != cudaSuccess) return (int)err;
@@ -264,47 +291,41 @@ static int launch(const float* tris, int T, const int* keys, int n_keys,
     // than the items there can be
     static int resident = 0;
     if (resident == 0) {
-        resident = resident_blocks(stream_sweep_items<BW, AH, CULL>, TILE_N);
+        resident = resident_blocks(stream_sweep_items<BW, AH>, TILE_N);
     }
     const long long cap = (long long)n_rt * STREAM_Q *
                           ((n_keys + STREAM_S - 1) / STREAM_S);
     const int grid = resident < cap ? resident : (int)cap;
     if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
-    stream_sweep_items<BW, AH, CULL><<<grid, TILE_N, 0, stream>>>(
-        tris, T, keys, n_keys, idx_mask, rays, n, n_sub, sub_boxes, t_out,
-        idx_out, visits, w);
+    stream_sweep_items<BW, AH><<<grid, TILE_N, 0, stream>>>(
+        tris, T, keys, n_keys, idx_mask, rays, n, sub_t, sub_boxes, t_out,
+        idx_out, visits, tally, w);
     return (int)cudaGetLastError();
 }
 
-// best: (N,) uint64; items: (n_rt, 4) int32; counters: 3 int32;
+// sub_boxes: (T / sub_t, 8) float32, 16-byte aligned; tally: 2 uint64 or
+// null; best: (N,) uint64; items: (n_rt, 4) int32; counters: 3 int32;
 // pending: (2 n_rt,) int32 (the pending counts, then the published
-// skylines); none needs initialising.
+// skylines); none of the scratch needs initialising.
 extern "C" int stream_sweep_launch(const float* tris, int use_bw, int T,
                                    const int* keys, int n_keys, int idx_bits,
                                    const float* rays, int n, float* t_out,
-                                   int* idx_out, int any_hit, int n_sub,
+                                   int* idx_out, int any_hit, int sub_t,
                                    const float* sub_boxes, int* visits,
+                                   unsigned long long* tally,
                                    unsigned long long* best, int* items,
                                    int* counters, int* pending,
                                    cudaStream_t stream) {
     const int idx_mask = (1 << idx_bits) - 1;
-    if (n < TILE_N) return (int)cudaErrorInvalidValue;
-    // culling reads the Moller-Trumbore rows' boxes only
-    if (n_sub < 1 || STREAM_T % n_sub || (n_sub > 1 && (use_bw || !sub_boxes)))
+    if (n < TILE_N || sub_t < 1 || STREAM_T % sub_t || sub_boxes == nullptr)
         return (int)cudaErrorInvalidValue;
     const Work w{best, reinterpret_cast<int4*>(items), counters, pending,
                  pending + n / TILE_N};
-#define ARGS tris, T, keys, n_keys, idx_mask, rays, n, n_sub, sub_boxes, \
-             t_out, idx_out, visits, w, stream
+#define ARGS tris, T, keys, n_keys, idx_mask, rays, n, sub_t, sub_boxes, \
+             t_out, idx_out, visits, tally, w, stream
     if (use_bw) {
-        return any_hit ? launch<true, true, false>(ARGS)
-                       : launch<true, false, false>(ARGS);
+        return any_hit ? launch<true, true>(ARGS) : launch<true, false>(ARGS);
     }
-    if (n_sub > 1) {
-        return any_hit ? launch<false, true, true>(ARGS)
-                       : launch<false, false, true>(ARGS);
-    }
-    return any_hit ? launch<false, true, false>(ARGS)
-                   : launch<false, false, false>(ARGS);
+    return any_hit ? launch<false, true>(ARGS) : launch<false, false>(ARGS);
 #undef ARGS
 }

@@ -68,7 +68,7 @@ def _declare(lib):
     lib.lane_keys_launch.argtypes = [vp, ci, ci, vp, ci, vp, vp, ci, vp]
     lib.stream_sweep_launch.argtypes = [
         vp, ci, ci, vp, ci, ci, vp, ci, vp, vp, ci, ci, vp, vp, vp, vp, vp,
-        vp, vp]
+        vp, vp, vp]
     lib.mt_sweep_launch.argtypes = [
         vp, ci, vp, vp, vp, vp, ci, vp, ci, vp, vp, vp, vp, ci, ci, vp, vp,
         vp, vp, vp, vp]

@@ -18,6 +18,7 @@ import time
 import torch
 
 from nori_tpu_torch import graphs, spans
+from nori_tpu_torch.accel.traverse import count_gate_tally
 from nori_tpu_torch.core import rng
 from nori_tpu_torch.device import resolve_device  # noqa: F401 (re-export)
 from nori_tpu_torch.film import FilmSpec, splat
@@ -343,6 +344,7 @@ def render_batches(scene, sd, spp: int, seed: int, batch: int | None,
         (h, w, 3), dtype=torch.float32, device=device)
     with spans.sync("copy_out"):
         img = coll.broadcast(img).cpu().numpy()
+        count_gate_tally(device)
     elapsed = time.time() - t0
     with spans.sync("rays"):
         total_rays = int(torch.cat(ray_counts).sum())

@@ -28,7 +28,7 @@ from nori_tpu_torch.props import PropertyList
 from nori_tpu_torch.registry import register_class, NoriError, create_instance
 from nori_tpu_torch.bsdf import table_arrays
 # triangles per tile of the resident sweep / per slab of the streamed one
-from nori_tpu_torch.accel.sweep import FINE_T, STREAM_T
+from nori_tpu_torch.accel.sweep import FINE_T, STREAM_T, stream_sub_boxes
 from nori_tpu_torch.device import resolve_device
 
 TRI_PAD = 512  # triangle padding granularity (the JAX package's)
@@ -110,7 +110,9 @@ class SceneData:
     Field for field the JAX package's SceneData, less `bsdf` (the
     per-mesh BSDF table, which `mesh_attr` carries packed) and the wide
     BVH (HOST_ONLY), which only the "bvh" backend reads: `scene_bvh`
-    uploads it at that backend's first query.  Compared by identity.
+    uploads it at that backend's first query; plus `tri_sub_boxes`, the
+    streamed sweep's gate boxes, which the TPU kernel builds per sweep.
+    Compared by identity.
     """
 
     # triangle soup, world space; padded rows are degenerate & far away
@@ -135,6 +137,9 @@ class SceneData:
     # (16, 4T) matmul-form operand (K2-mxu); (16, 4) zeros when streamed
     tri_mxu: torch.Tensor
     tri_bw: torch.Tensor    # (12, T) Baldwin-Weber operand
+    # (T / STREAM_G, 8) the streamed sweep's gate boxes (built on the
+    # device by scene_data_from_numpy); (1, 8) zeros when resident
+    tri_sub_boxes: torch.Tensor
     tri_tile_bounds: torch.Tensor  # (T/FINE_T, 8) per-tile AABBs
     scene_bounds: torch.Tensor  # (1, 8) [center xyz, half-diag, ...]
     em_radiance: torch.Tensor   # (M, 3)
@@ -198,9 +203,14 @@ def scene_data_from_numpy(arrays: dict, device) -> SceneData:
 
     Keys the port does not carry on the device (`bsdf`) are ignored, so
     the dict read out of the JAX package's SceneData can be passed as it
-    is; the BVH (HOST_ONLY) stays on the host for `scene_bvh`."""
-    sd = SceneData(**{f.name: _tensor(arrays[f.name], device)
-                      for f in dataclasses.fields(SceneData)})
+    is; the BVH (HOST_ONLY) stays on the host for `scene_bvh`.  The one
+    field no such dict holds, `tri_sub_boxes`, is built here on the
+    device from `tri_packed` (sweep.stream_sub_boxes), once a scene."""
+    fields = {f.name: _tensor(arrays[f.name], device)
+              for f in dataclasses.fields(SceneData)
+              if f.name != "tri_sub_boxes"}
+    sd = SceneData(**fields,
+                   tri_sub_boxes=stream_sub_boxes(fields["tri_packed"]))
     _BVH[sd] = [tuple(arrays[k] for k in HOST_ONLY), None]
     return sd
 

@@ -440,7 +440,8 @@ def sweep_check(kernel: str, sd, rays, any_hit: bool) -> int:
         got = sweep.resident_sweep(sd.tri_bw, keys, bits, rays, any_hit)
         ref = sweep.resident_sweep_plain(sd.tri_bw, rays, any_hit)
     else:
-        got = sweep.stream_sweep(sd.tri_bw, keys, bits, rays, any_hit)
+        got = sweep.stream_sweep(sd.tri_bw, keys, bits, rays, any_hit,
+                                 sub_boxes=sd.tri_sub_boxes)
         ref = sweep.stream_sweep_plain(sd.tri_bw, rays, any_hit)
     _chip_smoke().compare_sweep(
         f"{kernel} {'any-hit' if any_hit else 'closest'} on {rays.device}",

@@ -139,6 +139,11 @@ def counters() -> dict:
     return dict(_REC.counters)
 
 
+def enabled() -> bool:
+    """Is recording on?"""
+    return _REC.on
+
+
 def enable() -> None:
     _REC.on = True
 

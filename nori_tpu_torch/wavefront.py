@@ -59,7 +59,7 @@ from nori_tpu_torch import config, graphs, spans
 from nori_tpu_torch.bitmap import write_png
 from nori_tpu_torch.accel.sweep import lane_keys, pack_rays
 from nori_tpu_torch.accel.traverse import (
-    intersect, intersect_mixed, sweep_hit_epilogue)
+    count_gate_tally, intersect, intersect_mixed, sweep_hit_epilogue)
 from nori_tpu_torch.bsdf import E_DISCRETE
 from nori_tpu_torch.core import rng
 from nori_tpu_torch.core.vecmath import EPSILON, to_world
@@ -800,6 +800,7 @@ def render_chunks(scene, sd, spp: int, seed: int, steppers, chunk: int,
         (h, w, 3), dtype=torch.float32, device=device)
     with spans.sync("copy_out"):
         img = coll.broadcast(img).cpu().numpy()
+        count_gate_tally(device)
     dt = time.time() - t0
     with spans.sync("rays"):
         rays_per_dev = (torch.stack(ray_counts).sum(0).tolist()

@@ -184,13 +184,16 @@ def turn(root: str) -> dict:
     kc = sweep.ray_tile_entry_keys(tb, rays)
     ks = sweep.ray_tile_entry_keys(tb, shadow)
     kt = sweep.ray_tile_entry_keys(tb, srt)
+    # the gate's boxes, on a checkout whose scene data carries them
+    gk = ({"sub_boxes": sd.tri_sub_boxes} if hasattr(sd, "tri_sub_boxes")
+          else {})
     for label, fn in (
             ("k5 bw closest", lambda: sweep.stream_sweep(
-                sd.tri_bw, *kc, rays, False, True)),
+                sd.tri_bw, *kc, rays, False, True, **gk)),
             ("k5 bw any-hit", lambda: sweep.stream_sweep(
-                sd.tri_bw, *ks, shadow, True, True)),
+                sd.tri_bw, *ks, shadow, True, True, **gk)),
             ("k5 bw any-hit sorted 131072", lambda: sweep.stream_sweep(
-                sd.tri_bw, *kt, srt, True, True)),
+                sd.tri_bw, *kt, srt, True, True, **gk)),
             ("k5-cull mt closest", lambda: sweep.stream_sweep_culled(
                 sd.tri_packed, *kc, rays, False, cs.CULL_T))):
         out[label] = kernel_ms(fn, 10)

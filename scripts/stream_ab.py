@@ -85,7 +85,7 @@ def turn(root: str) -> dict:
     import torch
     import chip_smoke as cs
     from nori_tpu_torch.accel import sweep
-    from stream_inputs import ajax_inputs, room_inputs
+    from stream_inputs import ajax_inputs, gate_kw, room_inputs
 
     dev = torch.device("cuda:0")
     cs.build_kernels()
@@ -103,7 +103,8 @@ def turn(root: str) -> dict:
             ("k5 bw closest 131072", sd.tri_bw, True, a.rays_b, False)):
         kb = sweep.ray_tile_entry_keys(tb, r)
         calls[label] = (lambda op=op, kb=kb, r=r, ah=ah, use_bw=use_bw:
-                        sweep.stream_sweep(op, *kb, r, ah, use_bw))
+                        sweep.stream_sweep(op, *kb, r, ah, use_bw,
+                                           **gate_kw(sd)))
     for label, r, ah in (("k5-cull mt closest", rays, False),
                          ("k5-cull mt any-hit", shadow, True)):
         kb = sweep.ray_tile_entry_keys(tb, r)

@@ -11,6 +11,9 @@ With the kernels of the checkout at ROOT (default: this one):
   closest, BW any-hit, K5-cull closest and any-hit; and K5 BW any-hit
   on the 131,072 shadow rays of one whitted batch, in the order
   traverse.occluded sorts them and unsorted;
+* on the benchmark's cbox_scan, K5 BW closest and any-hit on one steady
+  524,288-lane step's bounce and sorted shadow rays
+  (stream_inputs.cbox_scan_inputs);
 * on the living room (chip_smoke FULL) at 131,072 check rays: K6
   culled, closest and any-hit.
 
@@ -18,7 +21,10 @@ One JSON line per query: the launch time (CUDA events,
 chip_smoke.time_ms), the distribution of the kernel's visit counts over
 ray tiles (mean, p50, p99, max, the ray tiles above 4x the mean, the 24
 largest), the triangles per counted visit (`group`: a checkout may
-count slabs, quarter slabs or sub-blocks), the candidate keys per row,
+count slabs, quarter slabs or sub-blocks, and a gated one each warp's
+sub-blocks of STREAM_G), K5's gate tally where the checkout has the
+gate (`gate`: warp sub-blocks tested, and skipped while a ray of the
+warp searched), the candidate keys per row,
 the share of all visits that lie beyond c visits of their row for caps
 c of a first pass (given in slabs or tiles of 512 triangles), and the
 work items the plan left to the persistent blocks where the checkout
@@ -97,9 +103,11 @@ def ptxas_report(log: str, dynamic_smem) -> list[dict]:
 
 
 def run_query(cs, label, lanes, call, rays, keys_bits, group, per_512,
-              items=None):
+              items=None, gated=False):
     """Time one query, read its visits and print its JSON line.
-    call(visits) launches it; items() reads the tail's work items."""
+    call(visits) launches it; items() reads the tail's work items; a
+    gated call (call(visits, tally)) also reads its gate's tally: the
+    warp sub-blocks tested and those skipped while a ray searched."""
     import torch
 
     visits = torch.zeros(rays.shape[1] // 256, dtype=torch.int32,
@@ -112,6 +120,12 @@ def run_query(cs, label, lanes, call, rays, keys_bits, group, per_512,
                largest=sorted(visits.cpu().tolist())[-24:])
     if items is not None:
         row["work"] = items()
+    if gated:
+        tally = torch.zeros((2,), dtype=torch.int64, device=rays.device)
+        call(None, tally)
+        tested, culled = tally.tolist()
+        row["gate"] = dict(tested=tested, culled=culled,
+                           culled_share=culled / max(tested + culled, 1))
     if keys_bits is not None:
         keys, bits = keys_bits
         cand = ((keys & ~((1 << bits) - 1)) < 0x7F800000).sum(1)
@@ -126,7 +140,8 @@ def main() -> int:
     from nori_tpu_torch import cuda_build
     from nori_tpu_torch.accel import sweep
     from nori_tpu_torch.render import DEFAULT_BATCH
-    from stream_inputs import ajax_inputs, room_inputs
+    from stream_inputs import (ajax_inputs, cbox_scan_inputs, gate_kw,
+                               room_inputs)
 
     dev = torch.device("cuda:0")
     print(cs.card_line(), ROOT)
@@ -144,28 +159,38 @@ def main() -> int:
               "compiler log")
     for r in ptxas_report(cuda_build.build_log, dynamic_smem):
         print(json.dumps(r), flush=True)
-    # triangles per counted visit of the uncut K5 and of K6
-    unit = getattr(sweep, "STREAM_U", sweep.STREAM_T)
+    # triangles per counted visit of K5 (a quarter slab or, gated, one
+    # warp's sub-block) and of K6
+    gated = hasattr(sweep, "STREAM_G")
+    unit = (sweep.STREAM_G if gated
+            else getattr(sweep, "STREAM_U", sweep.STREAM_T))
     unit6 = getattr(sweep, "TILE_U", sweep.TILE_T)
+    # counted visits per 512-triangle slab of a ray tile
+    per5 = 512 // unit * (8 if gated else 1)
 
     def stream_queries(lanes, cases, with_cull):
         for label, op, use_bw, r, any_hit in cases:
             kb = sweep.ray_tile_entry_keys(sd.tri_tile_bounds, r)
             ws = sweep.stream_workspace(r.shape[1], dev) if two_pass else None
-            kw = dict(workspace=ws) if two_pass else {}
+            kw = dict(workspace=ws, **gate_kw(sd)) if two_pass else {}
             items = ((lambda ws=ws, r=r: sweep.stream_work(ws, r.shape[1]))
                      if two_pass else None)
             run_query(cs, "K5 " + label, lanes,
-                      lambda v, op=op, kb=kb, r=r, any_hit=any_hit,
-                      use_bw=use_bw, kw=kw: sweep.stream_sweep(
-                          op, *kb, r, any_hit, use_bw, visits=v, **kw),
-                      r, kb, unit, 512 // unit, items)
+                      lambda v, tally=None, op=op, kb=kb, r=r,
+                      any_hit=any_hit, use_bw=use_bw, kw=kw:
+                      sweep.stream_sweep(
+                          op, *kb, r, any_hit, use_bw, visits=v,
+                          **(dict(kw, tally=tally) if gated else kw)),
+                      r, kb, unit, per5, items, gated)
             if with_cull and not use_bw:
+                kw = {k: v for k, v in kw.items() if k != "sub_boxes"}
                 run_query(cs, "K5-cull " + label, lanes,
-                          lambda v, op=op, kb=kb, r=r, any_hit=any_hit,
-                          kw=kw: sweep.stream_sweep_culled(
-                              op, *kb, r, any_hit, cs.CULL_T, visits=v, **kw),
-                          r, kb, cs.CULL_T, 512 // cs.CULL_T, items)
+                          lambda v, tally=None, op=op, kb=kb, r=r,
+                          any_hit=any_hit, kw=kw: sweep.stream_sweep_culled(
+                              op, *kb, r, any_hit, cs.CULL_T, visits=v,
+                              **(dict(kw, tally=tally) if gated else kw)),
+                          r, kb, unit if gated else cs.CULL_T,
+                          per5 if gated else 512 // cs.CULL_T, items, gated)
 
     a = ajax_inputs(cs, dev)
     sd = a.sd
@@ -178,6 +203,13 @@ def main() -> int:
         ("bw any-hit sorted", sd.tri_bw, True, a.srt, True),
         ("bw any-hit unsorted", sd.tri_bw, True, a.shadow_b, True)), False)
     del a
+    c = cbox_scan_inputs(dev)
+    sd = c.sd
+    stream_queries(c.closest.shape[1], (
+        ("cbox_scan step bw closest", sd.tri_bw, True, c.closest, False),
+        ("cbox_scan step bw any-hit", sd.tri_bw, True, c.shadow, True)),
+        False)
+    del c
 
     room = room_inputs(cs, dev)
     sd, rays, shadow = room.sd, room.rays, room.shadow

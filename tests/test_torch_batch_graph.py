@@ -123,10 +123,17 @@ def _same(monkeypatch, device, scene, seeds=(5, 2**31 + 7), **kw):
     # the first batch of each image runs eagerly
     assert b["counters"]["batches.graphed"] == batches - len(seeds)
     # every other counter (host reads, streamed sweeps) as eager: a
-    # replay adds what its capture counted
+    # replay adds what its capture counted.  K5's gate tally (on a card)
+    # counts what the walks' order let the gates skip, which varies
+    # from run to run: present in both, each positive
     rest = dict(b["counters"])
     del rest["batches.graphed"]
-    assert rest == a["counters"]
+    eager = dict(a["counters"])
+    for name in ("sweeps.stream_groups", "sweeps.stream_groups_culled"):
+        assert (name in rest) == (name in eager)
+        if name in eager:
+            assert rest.pop(name) > 0 and eager.pop(name) > 0
+    assert rest == eager
     # each image captures its graphs again: depth 0 and the splat at
     # least
     assert b["captures"] >= 2 * len(seeds)

@@ -184,6 +184,8 @@ def test_streamed_replayed_equals_eager_cpu(monkeypatch):
     assert b["counters"]["steps.graphed"] > 0
     assert a["counters"]["sweeps.streamed"] == \
         b["counters"]["sweeps.streamed"] == 2 * a["st"]["steps"]
+    # the plain sweep has no gate, and no tally to read
+    assert "sweeps.stream_groups" not in a["counters"]
     assert a["img"].mean() > 0.0
 
 
@@ -313,6 +315,12 @@ def test_replayed_equals_eager_on_card(monkeypatch, card, name):
     if name.endswith("_cascade"):
         assert b["shrinks"] == 2
         assert b["entries"] == b["captures"] == 3
+    if name == "cbox_scan_cascade":
+        # K5's gate tally, read once an image: a replayed sweep adds to
+        # it on the card (the counts vary with the items' order)
+        for r in (a, b):
+            assert r["counters"]["sweeps.stream_groups"] > 0
+            assert r["counters"]["sweeps.stream_groups_culled"] > 0
 
 
 @pytest.mark.card

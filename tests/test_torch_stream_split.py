@@ -12,7 +12,11 @@ first key lies beyond the ray tile's published skyline, walking its keys
 with the skyline (K6: the reach) recomputed after every quarter, and
 folding into the packed best by the packed-word minimum after every
 quarter, where it also takes over a better word another item left there
-(share_best); the last item of a ray tile writing its answers.  The
+(share_best); the last item of a ray tile writing its answers.  K5 tests
+a quarter in sub-blocks of STREAM_G triangles, each only in the warps
+(32 consecutive rays) one of whose searching rays enters the widened box
+that covers it (common.cuh gate_box, emulated in float32 in the kernel's
+order): the scene's boxes of G, or K5-cull's of 128 or 64.  The
 shuffled runs keep several items in flight and advance a random one by
 a quarter at a time, as blocks on the card interleave.
 
@@ -46,6 +50,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MISS = 0xFF800000FFFFFFFF
 F32_INF = np.float32(np.inf)
 N, U, Q = sweep.TILE_N, sweep.STREAM_U, sweep.STREAM_T // sweep.STREAM_U
+G, NW = sweep.STREAM_G, sweep.TILE_N // 32
 
 
 def _t(a):
@@ -156,17 +161,39 @@ def _run_items(items, start, done, seed):
 # K5: the streamed sweep's schedule
 # ---------------------------------------------------------------------------
 
-class _StreamTile:
-    """One ray tile's rays and the (16, T) operand."""
+def gate_box(box, rays, tu):
+    """common.cuh gate_box of every ray of (8, n) rays against one box
+    [lo xyz | hi xyz | pad], with useful t `tu`: the box widened by
+    GATE_PAD times the largest coordinate magnitude of the box and the
+    ray's origin, then the slab test on [mint, tu]; float32 throughout,
+    in the kernel's order.  (n,) bool numpy."""
+    box = torch.as_tensor(box)
+    if not bool(box[0] <= box[3]):
+        return np.zeros(rays.shape[1], bool)
+    o = rays[0:3].T
+    m = torch.maximum(o.abs().amax(1), box[0:6].abs().amax())
+    e = (m * sweep.GATE_PAD)[:, None]
+    cand, _ = sweep._slab(box[0:3] - e, box[3:6] + e, o,
+                          sweep._safe_inv(rays[3:6].T), rays[6],
+                          torch.as_tensor(tu))
+    return cand.numpy()
 
-    def __init__(self, op, use_bw, rays, ah, cull_t, boxes):
+
+class _StreamTile:
+    """One ray tile's rays and the (16, T) operand; `gate` (sub_t,
+    boxes) gates each sub-block of G triangles per warp by the boxes of
+    sub_t triangles that cover it, None tests every sub-block in every
+    warp with a ray that searches."""
+
+    def __init__(self, op, use_bw, rays, ah, gate):
         self.rows = op[:12] if use_bw else op[:9]
         self.rays, self.ah = rays, ah
         r = rays.numpy()
         self.r = r
         self.live = r[6] <= r[7]
         self.maxt = r[7]
-        self.cull_t, self.boxes = cull_t, boxes
+        self.gate = gate
+        self.groups = set()   # first triangles of the sub-blocks tested
 
     def search(self, bi):
         return self.live & ~(bi >= 0) if self.ah else self.live
@@ -179,66 +206,74 @@ class _StreamTile:
         t_hi = int(tc.view(np.int32).max())
         return t_hi, (bool(need.any()) if self.ah else t_hi > 0)
 
-    def wanted(self, sb, bt, bi):
-        """K5-cull's gate: does a ray still searching enter sub-block
-        sb's box before its useful t?"""
-        r = self.rays
-        useful = r[7] if self.ah else torch.minimum(
-            torch.from_numpy(bt), r[7])
-        cand, _ = sweep._slab(self.boxes[sb, 0:3], self.boxes[sb, 3:6],
-                              r[0:3].T, sweep._safe_inv(r[3:6].T), r[6],
-                              useful)
-        return bool((cand.numpy() & self.search(bi)).any())
+    def wanted(self, lo, bt, need):
+        """The per-ray gate of the sub-block of G triangles from lo: a
+        ray that searches and may hit a triangle of it within its useful
+        t (maxt for any-hit, min(bt, maxt) for closest)."""
+        if self.gate is None:
+            return need
+        sub_t, boxes = self.gate
+        tu = self.maxt if self.ah else np.fmin(bt, self.maxt)
+        want = np.zeros_like(need)
+        for b in range(lo // sub_t, (lo + G - 1) // sub_t + 1):
+            want |= gate_box(boxes[b], self.rays, tu)
+        return want & need
 
-    def quarter(self, j, q, bt, bi):
-        """Test quarter q of slab j; returns (bt, bi, groups tested)."""
+    def quarter(self, j, q, bt, bi, count):
+        """Test quarter q of slab j in sub-blocks of G, each in the warps
+        whose gate lets it through; adds to count [warp sub-blocks
+        tested, skipped while a ray of the warp searched]; returns (bt,
+        bi)."""
         r = self.rays
         o = (r[0][:, None], r[1][:, None], r[2][:, None])
         d = (r[3][:, None], r[4][:, None], r[5][:, None])
-        span = min(self.cull_t, U) if self.cull_t else U
-        tested = 0
-        for c0 in range(0, U, span):
+        for c0 in range(0, U, G):
             lo = j * sweep.STREAM_T + q * U + c0
-            if self.cull_t and not self.wanted(lo // self.cull_t, bt, bi):
+            need = self.search(bi)
+            warp = self.wanted(lo, bt, need).reshape(-1, 32).any(1)
+            count[0] += int(warp.sum())
+            count[1] += int((~warp & need.reshape(-1, 32).any(1)).sum())
+            if not warp.any():
                 continue
-            tested += 1
-            hit, t = sweep._pair_test(self.rows[:, lo:lo + span], o, d,
+            self.groups.add(lo)
+            hit, t = sweep._pair_test(self.rows[:, lo:lo + G], o, d,
                                       r[6][:, None], r[7][:, None])
-            bt, bi = _fold(bt, bi, self.search(bi), hit.numpy(), t.numpy(),
-                           lo)
-        return bt, bi, tested
+            bt, bi = _fold(bt, bi, need & np.repeat(warp, 32), hit.numpy(),
+                           t.numpy(), lo)
+        return bt, bi
 
     def walk(self, row, mask, k0, k1, q, best, trace, out):
         """stream_walk as a generator that yields after every quarter:
         quarter q of the slabs of keys row[k0:k1], from and into the ray
-        tile's packed bests; leaves (t_hi, alive, groups tested) in
-        out."""
+        tile's packed bests; leaves (t_hi, alive, [warp sub-blocks
+        tested, culled]) in out."""
         known = best.copy()
         bt, bi = unpack_best(known)
         t_hi, alive = self.skyline(bt, bi)
-        tested, k = 0, k0
+        count, k = [0, 0], k0
         while alive and k < k1 and int(row[k] & ~mask) <= t_hi:
             j = int(row[k] & mask)
             trace.append((j, q))
-            bt, bi, n = self.quarter(j, q, bt, bi)
-            tested += n
+            bt, bi = self.quarter(j, q, bt, bi, count)
             known, bt, bi = _share(best, known, bt, bi)
             t_hi, alive = self.skyline(bt, bi)
             k += 1
             yield
         best[:] = np.minimum(best, pack_best(bt, bi))
-        out.update(t_hi=t_hi, alive=alive, tested=tested)
+        out.update(t_hi=t_hi, alive=alive, tested=count[0],
+                   culled=count[1])
 
 
 def stream_split(op, use_bw, keys, idx_bits, rays, any_hit, S, seed=None,
-                 cull_t=0):
-    """The plan and the work items on (8, N) rays; returns (t, idx,
-    visits per ray tile, items taken, shut items, walks: the (slab,
-    quarter) visits of each item per ray tile)."""
+                 gate=None):
+    """The plan and the work items on (8, N) rays, gated by `gate`
+    (sub_t, boxes) or not at all; returns (t, idx, warp sub-blocks
+    tested per ray tile, items taken, shut items, walks: the (slab,
+    quarter) visits of each item per ray tile, warp sub-blocks the
+    gates skipped while a ray searched)."""
     keys = keys.numpy()
     n_rt = rays.shape[1] // N
     mask = (1 << idx_bits) - 1
-    boxes = sweep.sub_block_boxes(op, cull_t) if cull_t else None
     t_out = np.full(rays.shape[1], F32_INF)
     i_out = np.full(rays.shape[1], -1, np.int64)
     best = np.full(rays.shape[1], MISS, np.uint64)
@@ -246,7 +281,7 @@ def stream_split(op, use_bw, keys, idx_bits, rays, any_hit, S, seed=None,
     tiles, records, pending, row_hi, walks = {}, [], {}, {}, {}
     for rt in range(n_rt):
         tile = _StreamTile(op, use_bw, rays[:, rt * N:(rt + 1) * N], any_hit,
-                           cull_t, boxes)
+                           gate)
         tiles[rt] = tile
         walks[rt] = []
         t_hi, alive = tile.skyline(np.full(N, F32_INF),
@@ -257,7 +292,7 @@ def stream_split(op, use_bw, keys, idx_bits, rays, any_hit, S, seed=None,
             pending[rt] = -(-k_end // S) * Q
             row_hi[rt] = t_hi
     items = _item_order(records, S, seed)
-    state = dict(shut=0)
+    state = dict(shut=0, culled=0)
 
     def start(item):
         rt, k0, k1, q = item
@@ -275,6 +310,7 @@ def stream_split(op, use_bw, keys, idx_bits, rays, any_hit, S, seed=None,
         out = item_out.pop(item, None)
         if out is not None:
             visits[rt] += out["tested"]
+            state["culled"] += out["culled"]
             row_hi[rt] = min(row_hi[rt], out["t_hi"] if out["alive"] else -1)
         pending[rt] -= 1
         if pending[rt] == 0:
@@ -284,12 +320,15 @@ def stream_split(op, use_bw, keys, idx_bits, rays, any_hit, S, seed=None,
     item_out = {}
     _run_items(items, start, done, seed)
     assert all(v == 0 for v in pending.values())
-    return t_out, i_out, visits, items, state["shut"], walks
+    groups = set().union(*(tile.groups for tile in tiles.values()))
+    return (t_out, i_out, visits, items, state["shut"], walks,
+            state["culled"], groups)
 
 
 def one_pass_stream(op, use_bw, keys, idx_bits, rays, any_hit):
     """The walk the schedule replaces: one block per ray tile over whole
-    slabs in key order; returns (t, idx, slabs visited per ray tile)."""
+    slabs in key order, ungated; returns (t, idx, slabs visited per ray
+    tile)."""
     keys = keys.numpy()
     mask = (1 << idx_bits) - 1
     n_rt = rays.shape[1] // N
@@ -298,14 +337,15 @@ def one_pass_stream(op, use_bw, keys, idx_bits, rays, any_hit):
     visits = np.zeros(n_rt, np.int64)
     for rt in range(n_rt):
         tile = _StreamTile(op, use_bw, rays[:, rt * N:(rt + 1) * N], any_hit,
-                           0, None)
+                           None)
         bt, bi = np.full(N, F32_INF), np.full(N, -1, np.int64)
         t_hi, alive = tile.skyline(bt, bi)
         for k in range(keys.shape[1]):
             if not alive or int(keys[rt, k] & ~mask) > t_hi:
                 break
             for q in range(Q):
-                bt, bi, _ = tile.quarter(int(keys[rt, k] & mask), q, bt, bi)
+                bt, bi = tile.quarter(int(keys[rt, k] & mask), q, bt, bi,
+                                      [0, 0])
             visits[rt] += 1
             t_hi, alive = tile.skyline(bt, bi)
         t_out[rt * N:(rt + 1) * N], i_out[rt * N:(rt + 1) * N] = bt, bi
@@ -483,16 +523,28 @@ def _assert_jax(t, i, t_ref, i_ref, rows, rays, any_hit, rtol):
         assert abs(float(tt[0, 0] - tt[0, 1])) <= rtol * abs(t_ref[r])
 
 
-ROOM_CASES = [(True, False, 2, 0), (False, False, 1, 0), (True, True, 2, 0),
-              (False, True, 3, 0), (False, False, 2, 128),
+def _gate(ops, sub_t):
+    """(sub_t, boxes) of the streamed soup whose MT rows are ops[False]:
+    the scene's gate boxes at G (sweep.stream_sub_boxes), K5-cull's
+    sub_block_boxes at another sub_t."""
+    mt = _t(ops[False])
+    return sub_t, (sweep.stream_sub_boxes(mt) if sub_t == G
+                   else sweep.sub_block_boxes(mt, sub_t))
+
+
+# (use_bw, any_hit, S, sub_t): the default gate at G on both operands,
+# and K5-cull's sub-blocks of 128 (one a quarter) and 64 (two)
+ROOM_CASES = [(True, False, 2, G), (False, False, 1, G), (True, True, 2, G),
+              (False, True, 3, G), (False, False, 2, 128),
               (False, True, 1, 128), (False, False, 2, 64)]
 
 
-@pytest.mark.parametrize("use_bw, any_hit, S, cull_t", ROOM_CASES)
-def test_stream_split_room(slabbed, use_bw, any_hit, S, cull_t):
+@pytest.mark.parametrize("use_bw, any_hit, S, sub_t", ROOM_CASES)
+def test_stream_split_room(slabbed, use_bw, any_hit, S, sub_t):
     """Living room rays through the plan and the work items, chunk-major
-    and shuffled: BW and MT, closest and any-hit, with sub-slab culling
-    at 128 (one sub-block per quarter) and 64 (two)."""
+    and shuffled, gated per warp: BW and MT, closest and any-hit, at the
+    scene's G and at K5-cull's 128 and 64; exactly the plain version's
+    and the ungated walk's answer, with fewer sub-blocks tested."""
     ops, tb_s, rays, _ = slabbed
     if any_hit:
         rays = _shadow_rays(ops[False], rays)
@@ -500,36 +552,44 @@ def test_stream_split_room(slabbed, use_bw, any_hit, S, cull_t):
     keys, bits = sweep.ray_tile_entry_keys(_t(tb_s), rt)
     tp, ip = (a.numpy() for a in sweep.stream_sweep_plain(op, rt, any_hit,
                                                           use_bw))
+    gate = _gate(ops, sub_t)
     for seed in (None, 0, 1):
-        t, i, visits, items, shut, _ = stream_split(
-            op, use_bw, keys, bits, rt, any_hit, S, seed, cull_t)
+        t, i, visits, items, shut, _, culled, _ = stream_split(
+            op, use_bw, keys, bits, rt, any_hit, S, seed, gate)
         _assert_plain(t, i, tp, ip, any_hit)
         assert len(items) >= 3 * Q * 2
+    tu, iu, vu, _, _, _, cu, _ = stream_split(op, use_bw, keys, bits, rt,
+                                              any_hit, S, None)
+    _assert_plain(tu, iu, tp, ip, any_hit)
+    assert cu == 0 and 0 < visits.sum() < vu.sum() and culled > 0
+    cull_t = 0 if sub_t == G else sub_t
     t_ref, i_ref = (np.asarray(a) for a in pallas_mt.mt_sweep_streamed(
         jnp.asarray(ops[use_bw]), jnp.asarray(tb_s), jnp.asarray(rays),
         any_hit=any_hit, use_bw=use_bw, cull_t=cull_t))
     _assert_jax(t, i, t_ref, i_ref, ops[use_bw][:12 if use_bw else 9], rays,
                 any_hit, 1e-5 if cull_t else 1e-6)
     assert (ip >= 0).sum() > 100 and (ip < 0).sum() > 40
-    if not cull_t:
-        # the one-pass walk over whole slabs gives the same answer
-        t1, i1, v1 = one_pass_stream(op, use_bw, keys, bits, rt, any_hit)
-        _assert_plain(t1, i1, tp, ip, any_hit)
-        assert visits.sum() > 0 and v1.sum() > 0
+    # the one-pass walk over whole slabs gives the same answer
+    t1, i1, v1 = one_pass_stream(op, use_bw, keys, bits, rt, any_hit)
+    _assert_plain(t1, i1, tp, ip, any_hit)
+    assert v1.sum() > 0
 
 
 def test_stream_split_culled_tests_fewer_groups(slabbed):
-    """K5-cull's gate skips sub-blocks and changes no answer: fewer
-    groups tested than uncut, the same (t, idx)."""
+    """K5-cull's boxes of 128 gate coarser than the scene's of G: both
+    skip sub-blocks and change no answer, the finer boxes skip more."""
     ops, tb_s, rays, _ = slabbed
     op, rt = _t(ops[False]), _t(rays)
     keys, bits = sweep.ray_tile_entry_keys(_t(tb_s), rt)
-    t0, i0, v0, _, _, _ = stream_split(op, False, keys, bits, rt, False, 2)
-    t1, i1, v1, _, _, _ = stream_split(op, False, keys, bits, rt, False, 2,
-                                       cull_t=128)
-    np.testing.assert_array_equal(i0, i1)
-    np.testing.assert_array_equal(t0.view(np.int32), t1.view(np.int32))
-    assert 0 < v1.sum() < v0.sum()
+    t0, i0, v0 = stream_split(op, False, keys, bits, rt, False, 2)[:3]
+    t1, i1, v1 = stream_split(op, False, keys, bits, rt, False, 2,
+                              gate=_gate(ops, 128))[:3]
+    t2, i2, v2 = stream_split(op, False, keys, bits, rt, False, 2,
+                              gate=_gate(ops, G))[:3]
+    for t, i in ((t1, i1), (t2, i2)):
+        np.testing.assert_array_equal(i0, i)
+        np.testing.assert_array_equal(t0.view(np.int32), t.view(np.int32))
+    assert 0 < v2.sum() < v1.sum() < v0.sum()
 
 
 SOUP_CASES = [("escape", True, False), ("escape", False, False),
@@ -540,11 +600,13 @@ SOUP_CASES = [("escape", True, False), ("escape", False, False),
 
 @pytest.mark.parametrize("kind, use_bw, any_hit", SOUP_CASES)
 def test_stream_split_soup(soup, kind, use_bw, any_hit):
-    """The synthetic soup, S 1: rays with maxt 1e30 that miss everything
-    hold every slab's row open; an exact t tie whose two triangles fall
-    in different work items (the lowest index wins, whatever the order
-    of the items); a -0 hit (mint 0, origin on the triangle) that keeps
-    its sign through the packed best."""
+    """The synthetic soup, S 1, gated at G (K5-cull's 128 for "cull"):
+    rays with maxt 1e30 that miss everything hold every slab's row open;
+    an exact t tie whose two triangles fall in different work items (the
+    lowest index wins, whatever the order of the items); a -0 hit (mint
+    0, origin on the triangle) that keeps its sign through the packed
+    best.  The ungated walk tests every sub-block of every slab in every
+    warp of the escaping rows."""
     cull_t = 128 if any_hit == "cull" else 0
     any_hit = any_hit is True
     tb = soup[3]
@@ -555,11 +617,14 @@ def test_stream_split_soup(soup, kind, use_bw, any_hit):
     keys, bits = sweep.ray_tile_entry_keys(_t(tb), rt)
     tp, ip = (a.numpy() for a in sweep.stream_sweep_plain(op, rt, any_hit,
                                                           use_bw))
+    gate = _gate(ops, cull_t or G)
     for seed in (None, 0, 1):
-        t, i, visits, items, shut, walks = stream_split(
-            op, use_bw, keys, bits, rt, any_hit, 1, seed, cull_t)
+        t, i, visits, items, shut, walks, _, _ = stream_split(
+            op, use_bw, keys, bits, rt, any_hit, 1, seed, gate)
         _assert_plain(t, i, tp, ip, any_hit)
         assert len(items) >= 2 * SOUP_SLABS * Q // 2
+    tu, iu, vu = stream_split(op, use_bw, keys, bits, rt, any_hit, 1)[:3]
+    _assert_plain(tu, iu, tp, ip, any_hit)
     t_ref, i_ref = (np.asarray(a) for a in pallas_mt.mt_sweep_streamed(
         jnp.asarray(ops[use_bw]), jnp.asarray(tb), jnp.asarray(rays),
         any_hit=any_hit, use_bw=use_bw, cull_t=cull_t))
@@ -567,8 +632,10 @@ def test_stream_split_soup(soup, kind, use_bw, any_hit):
                 any_hit, 1e-5)
     if kind == "escape":
         # every slab of the first two rows: most rays hit nothing
-        if not cull_t:
-            assert (visits[:2] == SOUP_SLABS * Q).all()
+        # (its sub-blocks are slices across the soup in x: every +x ray
+        # enters them all, so the gate skips none here)
+        assert (vu[:2] == SOUP_SLABS * Q * (U // G) * NW).all()
+        assert (visits[:2] <= vu[:2]).all()
         assert (ip[:512] < 0).mean() > 0.5 and visits[2] == 0
     else:
         m = 256 if kind == "tie" else 128
@@ -593,10 +660,198 @@ def test_stream_split_shuts_items_beyond_the_skyline(soup):
     rt = _t(rays)
     keys, bits = sweep.ray_tile_entry_keys(_t(soup[3]), rt)
     tp, ip = (a.numpy() for a in sweep.stream_sweep_plain(op, rt))
-    t, i, visits, items, shut, _ = stream_split(op, True, keys, bits, rt,
-                                                False, 1)
+    t, i, visits, items, shut, _, _, _ = stream_split(
+        op, True, keys, bits, rt, False, 1, gate=_gate(ops, G))
     _assert_plain(t, i, tp, ip, False)
-    assert (ip == TIE_LO).all() and shut >= Q and visits[0] < len(items)
+    assert (ip == TIE_LO).all() and shut >= Q
+    assert visits[0] < len(items) * (U // G) * NW
+
+
+# the gate's hard inputs: a 32 x 32 grid of 0.25-unit squares in the
+# plane z = 5, two triangles a square, ordered so that each sub-block of
+# G = 32 is a 4 x 4 patch (neighbouring sub-blocks share edges and
+# vertices, and their boxes are flat in z); then the same grid tilted
+# about x by 30 degrees and lifted, in 4 x 4 patches too, holding a copy
+# of one flat triangle (GRID_TIE_HI) after its original (GRID_TIE_LO);
+# then GRID_PAD padding triangles (points far away), sub-blocks of it only
+GRID_PAD = 256
+
+
+def _grid(rot):
+    tri = []
+    for py in range(8):
+        for px in range(8):
+            for qy in range(4):
+                for qx in range(4):
+                    x, y = (px * 4 + qx) * 0.25, (py * 4 + qy) * 0.25
+                    tri.append([(x, y), (x + 0.25, y), (x, y + 0.25)])
+                    tri.append([(x + 0.25, y + 0.25), (x, y + 0.25),
+                                (x + 0.25, y)])
+    p = np.array(tri, np.float64)                       # (2048, 3, 2)
+    p3 = np.concatenate([p, np.full(p.shape[:2] + (1,), 5.0)], -1)
+    if rot:
+        c, s_ = np.cos(np.pi / 6), np.sin(np.pi / 6)
+        y, z = p3[..., 1] - 4.0, p3[..., 2] - 5.0
+        p3[..., 1], p3[..., 2] = 4.0 + c * y - s_ * z, 7.0 + s_ * y + c * z
+    return p3
+
+
+GRID_TIE_LO = 2 * (16 * 27 + 5)            # a flat triangle in patch 27
+GRID_TIE_HI = 2048 + 2 * (16 * 9 + 6)      # its copy, in a tilted patch
+
+
+@pytest.fixture(scope="module")
+def gate_soup():
+    """(ops {use_bw: (16, T)}, slab bounds): 4 flat slabs, 4 tilted ones
+    (one triangle replaced by the flat tie copy) and a last slab of 256
+    tilted triangles and GRID_PAD triangles of padding, as
+    scene.compile_arrays pads."""
+    flat, tilt = _grid(False), _grid(True)
+    tilt[GRID_TIE_HI - 2048] = flat[GRID_TIE_LO]
+    p = np.concatenate([flat, tilt, tilt[:256]]).astype(np.float32)
+    v0, e1, e2 = p[:, 0], p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]
+    n = v0.shape[0]
+    pad = (-n) % sweep.STREAM_T
+    assert pad == GRID_PAD
+    v0 = np.concatenate([v0, np.full((pad, 3), 1e30, np.float32)])
+    e1 = np.concatenate([e1, np.zeros((pad, 3), np.float32)])
+    e2 = np.concatenate([e2, np.zeros((pad, 3), np.float32)])
+    T = v0.shape[0]
+    mt = np.concatenate([v0, e1, e2], 1).T
+    bw = torch_scene._build_tri_bw(v0, e1, e2, n)
+
+    def pad16(op):
+        return np.ascontiguousarray(np.concatenate(
+            [op, np.zeros((16 - op.shape[0], T), np.float32)]))
+
+    ops = {True: pad16(bw), False: pad16(mt)}
+    q = np.stack([v0, v0 + e1, v0 + e2])
+    valid = (np.arange(T) < n)[None, :, None]
+    lo = np.where(valid, q, np.inf).min(0)
+    hi = np.where(valid, q, -np.inf).max(0)
+    n_s = T // sweep.STREAM_T
+    tb = np.zeros((n_s, 8), np.float32)
+    tb[:, 0:3] = lo.reshape(n_s, sweep.STREAM_T, 3).min(1)
+    tb[:, 3:6] = hi.reshape(n_s, sweep.STREAM_T, 3).max(1)
+    return ops, tb
+
+
+def _gate_rays(ops, use_bw, any_hit):
+    """(8, 768) rays: tile 0 straight down (d = -z, the clamped inverse
+    in x and y) onto grid vertices and onto edges on patch borders, and
+    rays grazing the flat grid at 1e-3; tile 1 starting inside the flat
+    boxes (on the plane) in random directions, with a warp of dead
+    lanes; tile 2 down onto the tie triangle's two copies, and along
+    the tilted grid's normal onto its vertices.  Any-hit: maxt at the
+    operand's own closest hit's t exactly on half the rays that hit."""
+    rng = np.random.RandomState(8)
+    o = np.zeros((768, 3))
+    d = np.tile([0.0, 0.0, -1.0], (768, 1))
+    grid = np.arange(33) * 0.25
+    o[0:96, 0] = grid[rng.randint(0, 33, 96)]
+    o[0:96, 1] = grid[rng.randint(0, 33, 96)]
+    o[96:192, 0] = (rng.randint(0, 9, 96) * 1.0)           # patch borders
+    o[96:192, 1] = rng.rand(96) * 8
+    o[192:256, 0] = -0.5
+    o[192:256, 1] = rng.rand(64) * 8
+    d[192:256] = [1.0, 0.0, -1e-3]
+    o[0:192, 2] = 10.0
+    o[192:256, 2] = 5.0 + 1e-3 * (0.5 + rng.rand(64) * 8)
+    o[256:512, 0:2] = rng.rand(256, 2) * 8
+    o[256:512, 2] = 5.0
+    w = rng.randn(256, 3)
+    d[256:512] = w / np.linalg.norm(w, axis=1, keepdims=True)
+    # square 5 of patch 27 starts at (3.25, 3.25); the tie is its lower
+    # left triangle, under the tilted grid (z 6.6 there)
+    o[512:640, 0] = 3.25 + 0.02 + rng.rand(128) * 0.08
+    o[512:640, 1] = 3.25 + 0.02 + rng.rand(128) * 0.08
+    o[512:640, 2] = 6.0
+    nrm = np.array([0.0, -np.sin(np.pi / 6), np.cos(np.pi / 6)])
+    o[640:768] = ops[False][0:3, 2048 + rng.randint(0, 2048, 128)].T \
+        + 3.0 * nrm
+    d[640:768] = -nrm
+    mint = np.full(768, 1e-4)
+    maxt = np.full(768, 1e30)
+    mint[288:320], maxt[288:320] = 1.0, -1.0                # a dead warp
+    rays = _pack(o.astype(np.float32), (d / np.linalg.norm(
+        d, axis=1, keepdims=True)).astype(np.float32),
+        mint.astype(np.float32), maxt.astype(np.float32))
+    if any_hit:
+        t, i = (a.numpy() for a in sweep.stream_sweep_plain(
+            _t(ops[use_bw]), _t(rays), False, use_bw))
+        exact = (i >= 0) & (np.arange(768) % 2 == 0)
+        rays[7] = np.where(exact, t, np.where(i >= 0, t * 1.5, rays[7]))
+    return rays
+
+
+@pytest.mark.parametrize("sub_t", [G, 128, 64])
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("use_bw", [True, False])
+def test_stream_split_gate_hard_inputs(gate_soup, use_bw, any_hit, sub_t):
+    """The per-warp gate on its hard inputs: rays along an axis onto
+    vertices and edges that two sub-blocks share, rays grazing a plane,
+    rays starting inside a box, an exact t tie across sub-blocks (the
+    lower index wins), sub-blocks of padding only (empty boxes, never
+    tested) and a warp whose lanes are all dead; any-hit rays whose
+    maxt is their hit's t.  The gated walk, chunk-major and shuffled,
+    gives the plain version's answer and the ungated walk's exactly."""
+    ops, tb = gate_soup
+    rays = _gate_rays(ops, use_bw, any_hit)
+    op, rt = _t(ops[use_bw]), _t(rays)
+    keys, bits = sweep.ray_tile_entry_keys(_t(tb), rt)
+    tp, ip = (a.numpy() for a in sweep.stream_sweep_plain(op, rt, any_hit,
+                                                          use_bw))
+    gate = _gate(ops, sub_t)
+    if sub_t == G:
+        empty = ~(gate[1][:, 0] <= gate[1][:, 3]).numpy()
+        assert empty.sum() == GRID_PAD // G
+    for seed in (None, 0):
+        t, i, visits, _, _, walks, culled, groups = stream_split(
+            op, use_bw, keys, bits, rt, any_hit, 2, seed, gate)
+        _assert_plain(t, i, tp, ip, any_hit)
+    tu, iu, vu = stream_split(op, use_bw, keys, bits, rt, any_hit, 2)[:3]
+    _assert_plain(tu, iu, tp, ip, any_hit)
+    assert culled > 0 and (visits <= vu).all() and visits.sum() < vu.sum()
+    assert (ip[0:96] >= 0).mean() > 0.9 and (ip[256:288] >= 0).any()
+    assert (ip[288:320] < 0).all() and (ip[640:768] >= 0).mean() > 0.9
+    if not any_hit:
+        # the tie: both copies at the same t, the lower index wins
+        assert (ip[512:640] == GRID_TIE_LO).all()
+    # the walks reach the padding's quarters, but no warp tests them
+    n_real = 4096 + 256
+    assert any(j * 512 + q * U >= n_real for w in walks.values()
+               for v in w for j, q in v)
+    assert max(groups) < n_real
+
+
+@pytest.mark.parametrize("streamed", [True, False])
+def test_scene_sub_boxes(monkeypatch, streamed):
+    """SceneData.tri_sub_boxes, built once by scene_data_from_numpy: on a
+    streamed soup sub_block_boxes(tri_packed, G) except on the
+    sub-blocks of padding only, which are empty (lo +inf, hi -inf); on a
+    resident one a (1, 8) zero placeholder.  compile_arrays, the JAX
+    package's dict, does not carry it."""
+    from nori_tpu_torch import scenes_builtin as torch_scenes
+
+    if streamed:
+        monkeypatch.setattr(torch_scene, "STREAMED_BYTES", 9 * 1024 * 4)
+    scene = torch_scenes.living_room(16, 16, 1, detail=3)
+    assert "tri_sub_boxes" not in scene.compile_arrays()
+    sd = scene.compile("cpu")
+    got = sd.tri_sub_boxes
+    if not streamed:
+        assert sd.tri_packed.shape[0] == 9
+        assert got.shape == (1, 8) and not got.any()
+        return
+    T = sd.tri_packed.shape[1]
+    ref = sweep.sub_block_boxes(sd.tri_packed, G)
+    pad = (torch.arange(T) >= scene.n_triangles).reshape(-1, G).all(1)
+    assert got.shape == (T // G, 8) and got.is_contiguous()
+    assert int(pad.sum()) >= 1
+    assert torch.equal(got[~pad], ref[~pad])
+    inf = float("inf")
+    assert (got[pad, 0:3] == inf).all() and (got[pad, 3:6] == -inf).all()
+    assert not got[:, 6:8].any()
 
 
 # ---------------------------------------------------------------------------
@@ -920,7 +1175,7 @@ def test_stream_constants_and_workspace():
             if len(parts) >= 3 and parts[0] == "#define":
                 defines[parts[1]] = parts[2]
     for name in ("STREAM_U", "TILE_U", "STREAM_S", "MT_S", "STREAM_T",
-                 "TILE_N"):
+                 "TILE_N", "STREAM_G"):
         assert int(defines[name]) == getattr(sweep, name), name
     assert sweep.STREAM_T % sweep.STREAM_U == 0 == sweep.TILE_T % sweep.TILE_U
     n = 4 * sweep.TILE_N
@@ -933,8 +1188,8 @@ def test_stream_constants_and_workspace():
     ws[cnt], ws[cnt + 2] = 2, 5
     assert sweep.stream_work(ws, n) == dict(records=2, max_chunks=5,
                                             items=8 * Q)
-    assert [sweep.stream_visit_group(c) for c in (0, 128, 64, 256, 512)] == [
-        128, 128, 64, 128, 128]
+    assert defines["GATE_PAD"] == "0x1p-12f" and sweep.GATE_PAD == 2.0 ** -12
+    assert sweep.STREAM_U % sweep.STREAM_G == 0
     with pytest.raises(ValueError):
         sweep._stream_ptrs(ws[:-1], n, torch.device("cpu"))
 
@@ -968,14 +1223,16 @@ def _chip_smoke():
     return chip_smoke
 
 
-@pytest.mark.parametrize("use_bw, any_hit, cull_t", [
-    (True, False, 0), (False, False, 0), (True, True, 0), (False, False, 128),
+@pytest.mark.parametrize("use_bw, any_hit, sub_t", [
+    (True, False, G), (False, False, G), (True, True, G), (False, False, 128),
     (False, True, 128), (False, False, 64)])
-def test_keys_needed_bounds_every_schedule(slabbed, use_bw, any_hit, cull_t):
+def test_keys_needed_bounds_every_schedule(slabbed, use_bw, any_hit, sub_t):
     """chip_smoke.keys_needed reads only the inputs and the plain
     answer, so it is the same for every schedule, and no schedule tests
-    fewer groups in any ray tile: not the one-pass walk in key order,
-    not the work items chunk-major or shuffled."""
+    fewer groups in any ray tile: not the one-pass walk in key order
+    (slabs), not the gated work items chunk-major or shuffled (per
+    warp, the sub-blocks of the gate's boxes, each at least sub_t / G
+    warp sub-blocks of G)."""
     cs = _chip_smoke()
     ops, tb_s, rays, _ = slabbed
     if any_hit:
@@ -983,17 +1240,17 @@ def test_keys_needed_bounds_every_schedule(slabbed, use_bw, any_hit, cull_t):
     op, rt = _t(ops[use_bw]), _t(rays)
     keys, bits = sweep.ray_tile_entry_keys(_t(tb_s), rt)
     plain = sweep.stream_sweep_plain(op, rt, any_hit, use_bw)
-    boxes = sweep.sub_block_boxes(op, cull_t) if cull_t else None
-    needed = cs.keys_needed(keys, bits, rt, plain, any_hit, boxes).numpy()
+    gate = _gate(ops, sub_t)
+    needed = cs.keys_needed(keys, bits, rt, plain, any_hit, gate[1],
+                            per_warp=True).numpy()
     assert needed.sum() > 0
-    per = 1 if cull_t else Q   # counted groups per needed slab or sub-block
     for seed in (None, 0, 1):
         visits = stream_split(op, use_bw, keys, bits, rt, any_hit, 2, seed,
-                              cull_t)[2]
-        assert (needed * per <= visits).all()
-    if not cull_t:
-        v1 = one_pass_stream(op, use_bw, keys, bits, rt, any_hit)[2]
-        assert (needed <= v1).all()
+                              gate)[2]
+        assert (needed * max(1, sub_t // G) <= visits).all()
+    slabs = cs.keys_needed(keys, bits, rt, plain, any_hit).numpy()
+    v1 = one_pass_stream(op, use_bw, keys, bits, rt, any_hit)[2]
+    assert slabs.sum() > 0 and (slabs <= v1).all()
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
